@@ -1,0 +1,83 @@
+"""Configuration of the PyTorch port: camera intrinsics, network and decode.
+
+Plain dataclasses mirroring ``densereg_tpu/config.py``; the constants are
+the reference preprocessing's (``config.py:39-48`` of the JAX package).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Tuple
+
+import torch
+
+D_RANGE = 300.0          # depth-normalization window size (mm)
+POSE_NORM_RATIO = 100.0  # xyz pose normalization divisor (mm -> units)
+MAX_DIST_2D = 4.0        # heatmap cone radius (pixels)
+MAX_DIST_3D = 0.8        # offset cone radius (normalized units = 80 mm)
+
+
+class CameraConfig(NamedTuple):
+    """Pinhole intrinsics ``(fx, fy, cx, cy, w, h)``; per-sample (post-crop)
+    intrinsics travel as a ``(b, 6)`` float tensor."""
+
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    w: float
+    h: float
+
+    def as_array(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        return torch.tensor(tuple(self), dtype=dtype, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class NetConfig:
+    """Architecture of the stacked-hourglass detector (``um_v1``)."""
+
+    num_stack: int = 2
+    num_fea: int = 128
+    kernel_size: int = 3
+    num_joint: int = 16
+    input_hw: Tuple[int, int] = (128, 128)
+    net_module: str = "um_v1"
+    # "float32" or "bfloat16": the dtype of the convolutions; heads are
+    # always emitted in float32
+    compute_dtype: str = "float32"
+    # build bias-convs instead of conv + batch renorm (weights from
+    # models.fold.fold_batch_norm)
+    fold_bn: bool = False
+    bn_epsilon: float = 1e-3
+
+    @property
+    def output_hw(self) -> Tuple[int, int]:
+        return (self.input_hw[0] // 4, self.input_hw[1] // 4)
+
+    @property
+    def hourglass_depth(self) -> int:
+        # the bottom of the hourglass is a 2x2 map
+        depth = {32: 2, 64: 3, 128: 4, 256: 5, 512: 6}.get(self.input_hw[0])
+        if depth is None:
+            raise ValueError(f"unsupported input size {self.input_hw}")
+        return depth
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+        if self.compute_dtype not in dtypes:
+            raise ValueError(
+                f"compute_dtype must be one of {sorted(dtypes)}, "
+                f"got {self.compute_dtype!r}")
+        return dtypes[self.compute_dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Decode settings. On a CUDA tensor the decode always runs the fused
+    kernel (``ops.fused_decode``); on a CPU tensor its plain version."""
+
+    num_candidates: int = 5
+    mean_shift_iters: int = 10
+    band_width: float = 0.4
+    vote_grid: int = 4            # 4x4x4 quantized voting grid

@@ -1,0 +1,144 @@
+"""Stacked-hourglass dense-regression network ``um_v1``, eval form.
+
+Mirrors ``densereg_tpu/models/hourglass.py`` module for module, with the
+same submodule names. Inside, the layout is NCHW; the public interface keeps
+the JAX package's: normalized depth ``(b, H, W, 1)`` in, per-stack lists of
+NHWC float32 heads out. Channel concatenations follow the NHWC order of the
+JAX net.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+from torch import nn
+
+from densereg_torch.config import NetConfig
+from densereg_torch.models.layers import (
+    ConvBR,
+    Residual,
+    max_pool_same,
+    upsample_nearest_2x,
+)
+
+
+class Hourglass(nn.Module):
+    """Recursive hourglass: ``upper = res(x)``; ``lower = res(pool3x3/2(x))``
+    -> recurse -> ``res`` -> nearest x2 upsample; sum."""
+
+    def __init__(self, depth: int, ch: int, kernel_size: int = 3,
+                 use_bn: bool = True, bn_epsilon: float = 1e-3):
+        super().__init__()
+        self.kernel_size = kernel_size
+        res = lambda: Residual(ch, kernel_size=kernel_size, use_bn=use_bn,
+                               bn_epsilon=bn_epsilon)
+        self.upper = res()
+        self.lower_in = res()
+        self.inner = (Hourglass(depth - 1, ch, kernel_size, use_bn, bn_epsilon)
+                      if depth > 1 else None)
+        self.lower_out = res()
+
+    def forward(self, x):
+        upper = self.upper(x)
+        lower = self.lower_in(max_pool_same(x, self.kernel_size, 2))
+        if self.inner is not None:
+            lower = self.inner(lower)
+        return upper + upsample_nearest_2x(self.lower_out(lower))
+
+
+class DenseRegNet(nn.Module):
+    """The ``um_v1`` detector. ``forward(dms)`` takes normalized depth
+    ``(b, H, W, 1)`` and returns ``{"hm": [...], "hm3": [...], "um": [...]}``,
+    one float32 NHWC tensor per stack, ``(b, H/4, W/4, J | J | 3J)``.
+
+    Weights stay float32; every convolution runs in
+    ``cfg.compute_dtype``."""
+
+    def __init__(self, cfg: NetConfig):
+        super().__init__()
+        if cfg.net_module != "um_v1":
+            raise NotImplementedError(
+                f"net_module {cfg.net_module!r} is not ported yet; "
+                "densereg_torch builds 'um_v1' only")
+        self.cfg = cfg
+        f, j = cfg.num_fea, cfg.num_joint
+        bn = dict(use_bn=not cfg.fold_bn, bn_epsilon=cfg.bn_epsilon)
+
+        def res(in_ch, out_ch=None):
+            return Residual(in_ch, out_ch, cfg.kernel_size, **bn)
+
+        def head(in_ch, out_ch):
+            return ConvBR(in_ch, out_ch, 1, use_bn=False, relu=False)
+
+        self.stem_conv = ConvBR(1, 32, 7, stride=2, **bn)
+        self.stem_res1 = res(32, 64)
+        self.stem_res2 = res(64)
+        self.stem_res3 = res(64, f)
+        for i in range(cfg.num_stack):
+            s = f"_s{i}"
+            layers = {
+                "hg": Hourglass(cfg.hourglass_depth, f, cfg.kernel_size, **bn),
+                "ll_res": res(f),
+                "ll_conv": ConvBR(f, f, 1, **bn),
+                "hm_head": head(f, j),
+                "hm3_res": res(f + 3, 128),
+                "hm3_head": head(128, j),
+                "um_resA": res(f + 2 * j, 256),
+                "um_resB": res(256),
+                "umm_resA": res(f + 2 * j, 256),
+                "umm_resB": res(256),
+                "um_comb": res(512),
+                "um_fc1": ConvBR(515, 512, 1, use_bn=False),
+                "um_fc2": ConvBR(512, 512, 1, use_bn=False),
+                "um_head": head(512, 3 * j),
+            }
+            if i < cfg.num_stack - 1:
+                layers["inter_out"] = head(5 * j, f)
+                layers["inter_ll"] = head(f, f)
+            for name, mod in layers.items():
+                self.add_module(name + s, mod)
+
+    def forward(self, dms: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+        c = self.cfg
+        dtype = c.torch_dtype
+        x = dms.permute(0, 3, 1, 2).to(dtype)                 # (b, 1, H, W)
+        b = x.shape[0]
+
+        y = self.stem_res1(self.stem_conv(x))
+        y = max_pool_same(y, 2, 2)
+        hg_in = self.stem_res3(self.stem_res2(y))
+
+        out_h, out_w = c.output_hw
+        # the head-grid depth (method-2 shrink) and normalized uv grid
+        tiny = x[:, :, ::x.shape[2] // out_h, ::x.shape[3] // out_w]
+        uu = torch.arange(out_w, dtype=dtype, device=x.device) / (out_w / 2) - 1.0
+        vv = torch.arange(out_h, dtype=dtype, device=x.device) / (out_h / 2) - 1.0
+        uvd = torch.cat([uu.view(1, 1, 1, out_w).expand(b, 1, out_h, out_w),
+                         vv.view(1, 1, out_h, 1).expand(b, 1, out_h, out_w),
+                         tiny], dim=1)
+        invalid = tiny < -0.9
+
+        outs: Dict[str, List[torch.Tensor]] = {"hm": [], "hm3": [], "um": []}
+        for i in range(c.num_stack):
+            m = lambda name: getattr(self, f"{name}_s{i}")
+            hg = m("hg")(hg_in)
+            ll = m("ll_conv")(m("ll_res")(hg))
+            hm = m("hm_head")(ll)
+            hm3 = m("hm3_head")(m("hm3_res")(torch.cat([ll, uvd], dim=1)))
+
+            um_cat = torch.cat([hg, hm, hm3], dim=1)
+            um_in = m("um_resB")(m("um_resA")(um_cat))
+            um_mask = torch.where(invalid, torch.zeros_like(um_cat), um_cat)
+            um_mask = m("umm_resB")(m("umm_resA")(um_mask))
+            comb = m("um_comb")(torch.cat([um_in, um_mask], dim=1))
+            comb = torch.cat([comb, uvd], dim=1)
+            um = m("um_head")(m("um_fc2")(m("um_fc1")(comb)))
+
+            for key, v in (("hm", hm), ("hm3", hm3), ("um", um)):
+                outs[key].append(v.float().permute(0, 2, 3, 1))
+
+            if i < c.num_stack - 1:
+                tmp = m("inter_out")(torch.cat([hm, hm3, um], dim=1))
+                hg_in = hg_in + tmp + m("inter_ll")(ll)
+        return outs

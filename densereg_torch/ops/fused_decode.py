@@ -1,0 +1,110 @@
+"""Fused vote decode on CUDA: ``csrc/fused_decode.cu``.
+
+Replaces the TPU kernel ``densereg_tpu/ops/fused_decode.py::fused_decode``.
+On a CUDA tensor :func:`fused_decode` launches the hand-written kernel (or
+raises); on a CPU tensor it runs :func:`fused_decode_reference`, the plain
+torch decode that is the kernel's oracle.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from densereg_torch import decode
+from densereg_torch.config import EvalConfig
+from densereg_torch.ops import _build
+
+MAX_JOINTS = 32   # one warp per joint in a block of at most 1024 threads
+MAX_PICKS = 8     # each lane's running list (kList in the source)
+
+_ARGTYPES = ([ctypes.c_void_p] * 8
+             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_float, ctypes.c_void_p])
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_decode")
+    fn = lib.fused_decode_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def fused_decode_reference(hms, hm3s, ums, tiny_dms, cfgs, coms,
+                           num_pt: int = 5, num_it: int = 10,
+                           band_width: float = 0.4,
+                           vote_grid: int = 4) -> torch.Tensor:
+    """Plain torch form of the kernel: normalized poses ``(b, j, 3)``.
+
+    The kernel is held to this form evaluated on the CPU: on CUDA tensors
+    PyTorch's own kernels round some steps differently, which the mean
+    shift can magnify to ~1e-5."""
+    cfg = EvalConfig(num_candidates=num_pt, mean_shift_iters=num_it,
+                     band_width=band_width, vote_grid=vote_grid)
+    return decode.decode_plain(hms, hm3s, ums, tiny_dms, cfgs, coms, cfg)[0]
+
+
+def _check(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt):
+    b, h, w, j = hms.shape
+    want = {"hms": (b, h, w, j), "hm3s": (b, h, w, j), "ums": (b, h, w, 3 * j),
+            "tiny_dms": (b, h, w, 1), "cfgs": (b, 6), "coms": (b, 3)}
+    args = {"hms": hms, "hm3s": hm3s, "ums": ums, "tiny_dms": tiny_dms,
+            "cfgs": cfgs, "coms": coms}
+    for name, t in args.items():
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"fused_decode: {name} has shape "
+                             f"{tuple(t.shape)}, expected {want[name]}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_decode: {name} must be float32, "
+                            f"got {t.dtype}")
+        if t.device != hms.device:
+            raise ValueError(f"fused_decode: {name} is on {t.device}, "
+                             f"hms on {hms.device}")
+    if not 1 <= j <= MAX_JOINTS:
+        raise ValueError(f"fused_decode: 1..{MAX_JOINTS} joints, got {j}")
+    if not 1 <= num_pt <= min(MAX_PICKS, h * w):
+        raise ValueError(f"fused_decode: num_pt must lie in "
+                         f"[1, {min(MAX_PICKS, h * w)}], got {num_pt}")
+
+
+def fused_decode(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt: int = 5,
+                 num_it: int = 10, band_width: float = 0.4,
+                 vote_grid: int = 4) -> torch.Tensor:
+    """hms/hm3s (b, h, w, j); ums (b, h, w, 3j); tiny_dms (b, h, w, 1);
+    cfgs (b, 6); coms (b, 3), all float32 with any strides -> normalized
+    poses (b, j, 3).
+
+    Each launch of the kernel adds one to ``fused_decode.launches``.
+    """
+    if not hms.is_cuda:
+        return fused_decode_reference(hms, hm3s, ums, tiny_dms, cfgs, coms,
+                                      num_pt, num_it, band_width, vote_grid)
+    _check(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt)
+    b, h, w, j = hms.shape
+    out = torch.empty((b, j, 3), dtype=torch.float32, device=hms.device)
+    if b == 0:
+        return out
+    cfgs = cfgs.contiguous()
+    coms = coms.contiguous()
+    strides = (ctypes.c_longlong * 16)(
+        *(s for t in (hms, hm3s, ums, tiny_dms) for s in t.stride()))
+    lib = _lib()
+    with torch.cuda.device(hms.device):
+        err = lib.fused_decode_launch(
+            hms.data_ptr(), hm3s.data_ptr(), ums.data_ptr(),
+            tiny_dms.data_ptr(), strides, cfgs.data_ptr(), coms.data_ptr(),
+            out.data_ptr(), b, h, w, j, num_pt, num_it,
+            -1.0 / (2.0 * band_width * band_width), vote_grid,
+            float(vote_grid) - 0.1,
+            torch.cuda.current_stream(hms.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_decode: kernel launch failed with "
+                           f"cudaError_t {err}")
+    fused_decode.launches += 1
+    return out
+
+
+fused_decode.launches = 0

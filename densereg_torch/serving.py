@@ -1,0 +1,175 @@
+"""Batched serving: full depth frames + bounding boxes in, xyz joints out.
+
+Mirrors ``densereg_tpu/serving.py``::
+
+    predictor = Predictor(variables, net_cfg, camera, max_batch=256)
+    xyz = predictor(frames_mm, bbxs)        # (b, 3j) mm, camera space
+
+Per dispatch, on the predictor's device: crop from the boxes, center of
+mass, depth normalization, the stacked hourglass (batch norm folded into
+the convolutions by default), the head-grid subsample and the vote decode,
+which on CUDA runs the fused decode kernel. Each dispatch is padded to the
+smallest of ``batch_buckets`` that fits it, so the device sees a fixed set
+of batch shapes. The port runs eagerly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from densereg_torch import decode as decode_mod
+from densereg_torch.config import CameraConfig, EvalConfig, NetConfig
+from densereg_torch.models import fold_batch_norm, from_flax
+from densereg_torch.models.bridge import is_folded
+from densereg_torch.preprocess import (
+    center_of_mass,
+    crop_from_bbx,
+    method2_resize,
+    norm_dm,
+)
+
+
+class Predictor:
+    """Serve a DenseRegNet from its Flax-layout ``variables`` (nested dicts of
+    arrays, as ``models.bridge.from_flax`` takes them).
+
+    ``net_cfg.compute_dtype`` is ``"float32"`` or ``"bfloat16"``. A float32
+    predictor on CUDA turns TF32 off for the whole process
+    (``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32`` set to False): cuDNN would
+    otherwise run its float32 convolutions in TF32.
+
+    Not ported yet, and refused with ``NotImplementedError``: int8 serving
+    (``quantize``, ``calibration``), multi-device serving (``mesh``),
+    :meth:`from_checkpoint` and :meth:`from_converted`.
+    """
+
+    # uint16 integer-mm frames are accepted natively and cast on the device
+    accepts_u16 = True
+
+    def __init__(self, variables, net_cfg: NetConfig, camera: CameraConfig,
+                 max_batch: int = 64, ecfg: EvalConfig = EvalConfig(),
+                 fold_bn: bool = True, mesh=None, quantize: bool = False,
+                 calibration=None, batch_buckets=None, device="cuda"):
+        if quantize or calibration is not None:
+            raise NotImplementedError(
+                "int8 serving (quantize/calibration) is not ported to "
+                "densereg_torch yet; serve float32 or bfloat16")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device serving (mesh) is not ported to densereg_torch "
+                "yet; serve on one device")
+        if fold_bn and not is_folded(variables):
+            variables = fold_batch_norm(variables, eps=net_cfg.bn_epsilon)
+        net = from_flax(variables, net_cfg)
+        self.net_cfg = net.cfg
+        self.device = torch.device(device)
+        dtype = self.net_cfg.torch_dtype
+        if self.net_cfg.fold_bn:
+            # no batch statistics left to keep in float32
+            net = net.to(dtype)
+        self.net = net.to(self.device)
+        if dtype == torch.float32 and self.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.camera = camera
+        self._cam = camera.as_array(device=self.device)
+        self.ecfg = ecfg
+        self.max_batch = max_batch
+        # max_batch is always a bucket, so every chunk has a home
+        if batch_buckets:
+            buckets = sorted({int(v) for v in batch_buckets} | {max_batch})
+            if buckets[0] < 1 or buckets[-1] > max_batch:
+                raise ValueError(
+                    f"batch_buckets must lie in [1, max_batch={max_batch}]; "
+                    f"got {sorted(batch_buckets)}")
+            self.batch_buckets = tuple(buckets)
+        else:
+            self.batch_buckets = (max_batch,)
+
+    @classmethod
+    def from_checkpoint(cls, *args, **kwargs) -> "Predictor":
+        raise NotImplementedError(
+            "Predictor.from_checkpoint waits for the training slice of "
+            "densereg_torch (no torch checkpoint format exists yet)")
+
+    @classmethod
+    def from_converted(cls, *args, **kwargs) -> "Predictor":
+        raise NotImplementedError(
+            "Predictor.from_converted is not ported to densereg_torch yet")
+
+    @torch.inference_mode()
+    def _heads(self, frames: torch.Tensor, bbxs: torch.Tensor):
+        """Device frames and boxes -> the decode's inputs: the last stack's
+        ``hm, hm3, um`` (NHWC views), the head-grid depth, ``cfgs`` and
+        ``coms``."""
+        in_h, in_w = self.net_cfg.input_hw
+        out_h, out_w = self.net_cfg.output_hw
+        dms, cfgs = crop_from_bbx(frames, bbxs, self._cam, in_h, in_w)
+        coms = center_of_mass(dms, cfgs)
+        normed = norm_dm(dms, coms)
+        outs = self.net(normed)
+        tiny = method2_resize(normed, out_h, out_w)
+        return (outs["hm"][-1], outs["hm3"][-1], outs["um"][-1], tiny, cfgs,
+                coms)
+
+    @torch.inference_mode()
+    def _predict(self, frames: torch.Tensor, bbxs: torch.Tensor):
+        return decode_mod.decode_poses(*self._heads(frames, bbxs),
+                                       self.ecfg)["xyz"]
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def warmup(self, with_u16: bool = True) -> None:
+        """Run every (bucket, dtype) path once, so that no request pays for
+        the first launch or the kernel build."""
+        hw = (int(self.camera.h), int(self.camera.w))
+        bbx = np.asarray([[0, 0, hw[0], hw[1], 500.0]], np.float32)
+        dtypes = (np.float32, np.uint16) if with_u16 else (np.float32,)
+        for bucket in self.batch_buckets:
+            for dt in dtypes:
+                self._dispatch(np.zeros((bucket,) + hw + (1,), dt),
+                               np.repeat(bbx, bucket, 0)).cpu()
+
+    def _dispatch(self, frames: np.ndarray, bbxs: np.ndarray) -> torch.Tensor:
+        """Pad one chunk to the smallest bucket that fits and enqueue it;
+        returns the device result, with bucket rows, without waiting."""
+        b = frames.shape[0]
+        bucket = next(v for v in self.batch_buckets if v >= b)
+        pad = bucket - b
+        if pad:
+            frames = np.concatenate([frames, np.repeat(frames[-1:], pad, 0)])
+            bbxs = np.concatenate([bbxs, np.repeat(bbxs[-1:], pad, 0)])
+        return self._predict(self._to_device(frames),
+                             self._to_device(np.asarray(bbxs, np.float32)))
+
+    def __call__(self, frames_mm: np.ndarray, bbxs: np.ndarray) -> np.ndarray:
+        """frames_mm: (b, H, W) or (b, H, W, 1) raw depth, mm;
+        bbxs: (b, 5) = (top, left, bottom, right, depth_threshold).
+        Returns (b, 3j) xyz mm.
+
+        Requests larger than ``max_batch`` run as a double-buffered chunk
+        pipeline: chunk k+1 is padded and enqueued before chunk k's result
+        is fetched."""
+        frames = np.asarray(frames_mm)
+        if frames.dtype != np.uint16:  # keep integer depth in native width
+            frames = frames.astype(np.float32, copy=False)
+        if frames.ndim == 3:
+            frames = frames[..., None]
+        b = frames.shape[0]
+        if b == 0:
+            return np.zeros((0, 3 * self.net_cfg.num_joint), np.float32)
+        out, pending = [], None
+        for i in range(0, b, self.max_batch):
+            chunk = frames[i:i + self.max_batch]
+            dev = self._dispatch(chunk, bbxs[i:i + self.max_batch])
+            if pending is not None:
+                out.append(pending[0][:pending[1]].cpu().numpy())
+            pending = (dev, len(chunk))
+        out.append(pending[0][:pending[1]].cpu().numpy())
+        return out[0] if len(out) == 1 else np.concatenate(out)

@@ -1,0 +1,63 @@
+"""densereg_torch stands alone: it imports neither JAX, Flax nor the JAX
+package, and its CUDA entry points raise rather than fall back."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "densereg_torch"
+BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "densereg_tpu"}
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    assert not set(_imported_roots(path)) & BANNED
+
+
+def test_imports_with_jax_blocked():
+    """Every module of the package imports in a process where importing
+    JAX, Flax or the JAX package fails."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        f"for name in {sorted(BANNED)!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import densereg_torch\n"
+        "for m in pkgutil.walk_packages(densereg_torch.__path__, "
+        "'densereg_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'flax', 'densereg_tpu') "
+        "and sys.modules[k] is not None for k in sys.modules)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_default_to_cuda():
+    import inspect
+
+    from densereg_torch import Predictor
+    from densereg_torch.eval import make_infer_fn
+
+    for fn in (Predictor.__init__, make_infer_fn):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
