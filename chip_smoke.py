@@ -12,15 +12,23 @@ Phases, each printed as one JSON line:
    process per source, all started together.
 3. ``kernel``: each kernel against its plain PyTorch version on the card, on
    seeded adversarial inputs at the shapes the serving path gives it, with
-   its time, the plain version's, a library yardstick's and its bound.
+   its time, the plain version's, a library yardstick's and its bound: the
+   fused decode (K1) at every head size, then the int8 GEMM (K3) at every
+   distinct call of the calibrated int8 net at batch 256, on that net's own
+   operands.
 4. ``model``: DenseRegNet s2/f128/J16 at 128x128 input (seeded random
    weights, ``init_variables``) on the card against the CPU, float32 with
-   TF32 off.
+   TF32 off; then the calibrated int8 net on the card (K3) against the
+   same net on the CPU (K3's plain version), with its int8 steps compared
+   layer by layer.
 5. ``serving``: the main path. ``Predictor`` serves uint16 240x320 frames
-   with boxes, 1,024 per request, in float32 and bfloat16, then one lone
-   frame; the kernels' launch counts are zeroed just before and read just
-   after. Then its decode is held against the plain decode on the same
-   heads, and the whole path against a CPU predictor.
+   with boxes, 1,024 per request, in float32, bfloat16 and calibrated int8
+   (bfloat16 views), then one dynamic int8 request and one lone frame; the
+   kernels' launch counts are zeroed just before and read just after. Then
+   its decode is held against the plain decode on the same heads, and the
+   whole path against CPU predictors.
+6. ``kernel`` once more: the weighted mean shift (K2), which no serving
+   path runs, on the candidates and weights of the serving path's heads.
 
 Then a ``kernels`` line, the card's ``nvidia-smi`` name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -41,20 +49,34 @@ import torch
 from densereg_torch import CameraConfig, NetConfig, Predictor
 from densereg_torch import decode
 from densereg_torch.geometry import unnorm_xyz_pose
-from densereg_torch.models import from_flax, init_variables
+from densereg_torch.models import (
+    QTensor,
+    act_stats_to_flax,
+    calibrate,
+    fold_batch_norm,
+    from_flax,
+    init_variables,
+    quantize_weights,
+)
+from densereg_torch.models import layers
 from densereg_torch.models.bridge import seeded_depth
 from densereg_torch.ops import _build
 from densereg_torch.ops import fused_decode as fd
+from densereg_torch.ops import int8_gemm as k3
+from densereg_torch.ops import meanshift as k2
 from densereg_torch.preprocess import center_of_mass, crop_from_bbx, norm_dm
 
 SEED = 0
 ICVL = CameraConfig(fx=241.42, fy=241.42, cx=160.0, cy=120.0, w=320.0,
                     h=240.0)
-# H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores
+# H100 SXM data sheet: HBM rate, float32 rate outside the tensor cores and
+# the tensor cores' dense int8 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 
 K1_TOL = 6e-6        # normalized units (PARITY.md, fused-decode row)
+K2_TOL = 6e-6        # the same limit for the mean-shift stage alone
 HEAD_TOL = 1e-4      # per head element (PARITY.md, network row)
 XYZ_TOL_MM = 0.02    # decode's 2e-4 normalized bound (PARITY.md) in mm
 # (batch, head h, head w, joints): the serving bucket of 256 at 128 input
@@ -203,6 +225,190 @@ def phase_kernel(device, shapes=DECODE_SHAPES, iters: int = 50):
 
 
 # --------------------------------------------------------------------------
+# kernel: int8 GEMM with requantisation (K3)
+# --------------------------------------------------------------------------
+
+def int8_net(variables, net_cfg: NetConfig, device, calib):
+    """The calibrated int8 net of ``variables`` (folded, quantized) on
+    ``device``, calibrated on the normalized depth ``calib``."""
+    qtree = quantize_weights(fold_batch_norm(variables, net_cfg.bn_epsilon))
+    net = from_flax(qtree, net_cfg).to(device)
+    return calibrate(net, [calib.to(device)])
+
+
+def record_gemm_calls(net, x):
+    """Run ``net(x)`` once with the int8 GEMM spied on. Returns the distinct
+    calls, ``{(M, K, N, relu, emit_q, emit_f, f_dtype): (args, kwargs,
+    calls per forward)}``, each with the operands of its first call."""
+    real = layers.int8_gemm_requant
+    calls = {}
+
+    def spy(x_q, w_q, scale, bias, s_y=None, **kw):
+        key = (x_q.shape[0], x_q.shape[1], w_q.shape[1], kw["relu"],
+               kw["emit_q"], kw["emit_f"], str(kw["f_dtype"]).split(".")[-1])
+        if key not in calls:
+            calls[key] = [(x_q, w_q, scale, bias, s_y), kw, 0]
+        calls[key][2] += 1
+        return real(x_q, w_q, scale, bias, s_y, **kw)
+
+    layers.int8_gemm_requant = spy
+    try:
+        with torch.inference_mode():
+            net(x)
+    finally:
+        layers.int8_gemm_requant = real
+    return calls
+
+
+def gemm_bound(m, k, n, emit_q, emit_f, f_bytes):
+    """Least time of one call (ms) and what sets it: x, w, scale and bias
+    read once, q and f written once; 2MKN int8 operations."""
+    nbytes = m * k + k * n + 8 * n + m * n * (int(emit_q)
+                                              + f_bytes * int(emit_f))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m * k * n / INT8_OPS_PER_S * 1e3
+    return t_bytes, t_ops
+
+
+def int_mm_call(x_q, w_q, scale, bias, s_y, relu, emit_q, emit_f, f_dtype):
+    """The library yardstick: ``torch._int_mm`` (cuBLASLt int8, which takes
+    K and N in multiples of 8: the operands are zero-padded to them before
+    the timing) and the same epilogue in torch. Returns a closure."""
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    kp, np8 = -(-k // 8) * 8, -(-n // 8) * 8
+    a = torch.zeros((m, kp), dtype=torch.int8, device=x_q.device)
+    a[:, :k] = x_q
+    b = torch.zeros((kp, np8), dtype=torch.int8, device=x_q.device)
+    b[:k, :n] = w_q
+
+    def call():
+        y = torch._int_mm(a, b)[:, :n].float() * scale + bias
+        if relu:
+            y = torch.clamp_min(y, 0.0)
+        q = k3.quantize(y, s_y) if emit_q else None
+        f = y.to(f_dtype) if emit_f else None
+        return q, f
+    return call
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two float32 or
+    bfloat16 tensors of one sign pattern (0 and -0 are 0 apart)."""
+    if a.dtype == torch.bfloat16:
+        a, b = a.float(), b.float()     # exact; count in bfloat16 steps
+        scale = 2 ** 16
+    else:
+        scale = 1
+    ia = (a + 0.0).view(torch.int32).long()
+    ib = (b + 0.0).view(torch.int32).long()
+    return int(((ia - ib).abs() // scale).max().item())
+
+
+def phase_kernel_int8(variables, net_cfg: NetConfig, device, b: int = 256,
+                      iters: int = 20):
+    """K3 at every distinct call of the calibrated int8 net (bfloat16
+    views, as served) at batch ``b``, on that net's operands, against its
+    plain version on the card: ``q`` bit-identical and ``f`` within 1 ulp.
+    Returns the rows and the per-forward totals."""
+    cfg = NetConfig(**{**net_cfg.__dict__, "compute_dtype": "bfloat16"})
+    dms = torch.from_numpy(seeded_depth(np.random.default_rng(SEED + 3), b,
+                                        *cfg.input_hw))
+    net = int8_net(variables, cfg, device, dms[:64])
+    calls = record_gemm_calls(net, dms.to(device))
+    rows = []
+    for (m, k, n, relu, emit_q, emit_f, fdt), (args, kw, count) in sorted(
+            calls.items(), key=lambda kv: -kv[0][0] * kv[0][1] * kv[0][2]):
+        q, f = k3.int8_gemm_requant(*args, **kw)
+        q_p, f_p = k3.int8_gemm_requant_reference(*args, **kw)
+        torch.cuda.synchronize()
+        q_bad = 0 if q is None else int((q != q_p).sum().item())
+        f_ulps = 0 if f is None else ulps(f, f_p)
+        f_err = 0.0 if f is None else (f.float() - f_p.float()).abs().max(
+            ).item()
+        f_bytes = 0 if f is None else f.element_size()
+        t_bytes, t_ops = gemm_bound(m, k, n, emit_q, emit_f, f_bytes)
+        row = {"phase": "kernel", "name": "int8_gemm_requant",
+               "shape": {"M": m, "K": k, "N": n, "relu": relu,
+                         "emit_q": emit_q, "emit_f": emit_f, "f_dtype": fdt},
+               "calls_per_forward": count, "q_mismatches": q_bad,
+               "f_max_ulps": f_ulps, "max_abs_err": f_err,
+               "ms": cuda_ms(lambda: k3.int8_gemm_requant(*args, **kw),
+                             iters),
+               "plain_ms": cuda_ms(
+                   lambda: k3.int8_gemm_requant_reference(*args, **kw), 3),
+               "library_ms": cuda_ms(int_mm_call(*args, **kw), iters),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes_ms": t_bytes, "ops_ms": t_ops}
+        emit(row)
+        check(q_bad == 0, f"int8_gemm {m, k, n}: {q_bad} int8 outputs "
+                          f"differ from the plain version")
+        check(f_ulps <= 1, f"int8_gemm {m, k, n}: f {f_ulps} ulps off")
+        rows.append(row)
+    # one forward: each distinct call times the number of such calls
+    total = {key: sum(r[key] * r["calls_per_forward"] for r in rows)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bytes_ms", "ops_ms")}
+    total["bound_by"] = ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                         else "operations")
+    total["calls_per_forward"] = sum(r["calls_per_forward"] for r in rows)
+    total["ops_per_forward"] = sum(2 * r["shape"]["M"] * r["shape"]["K"]
+                                   * r["shape"]["N"] * r["calls_per_forward"]
+                                   for r in rows)
+    total["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    emit({"phase": "kernel", "name": "int8_gemm_requant", "batch": b,
+          "distinct_calls": len(rows), "per_forward": total})
+    return rows, total
+
+
+# --------------------------------------------------------------------------
+# kernel: weighted mean shift (K2), off the serving path
+# --------------------------------------------------------------------------
+
+def meanshift_bound(p, n, num_it=10):
+    """Least time (ms) of P problems of n candidates: the candidates and
+    weights read once, the centers written once; 64 compares a candidate
+    for the vote and 20 operations a candidate and step."""
+    nbytes = 4 * p * (4 * n + 3)
+    ops = p * n * (64 + 20 * num_it)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_kernel_meanshift(heads, ecfg, device, iters: int = 50):
+    """K2 on the candidates and weights that the plain decode (on the CPU)
+    draws from the serving path's heads, against the plain mean shift on
+    the CPU."""
+    heads = tuple(t.cpu() for t in heads)
+    _, cans, weights = decode.decode_plain(*heads, ecfg)
+    want = decode.weighted_mean_shift(cans, weights, ecfg.mean_shift_iters,
+                                      ecfg.band_width, ecfg.vote_grid)
+    d_cans, d_w = cans.to(device), weights.to(device)
+    run = lambda: k2.weighted_mean_shift_cuda(
+        d_cans, d_w, ecfg.mean_shift_iters, ecfg.band_width, ecfg.vote_grid)
+    got = run()
+    torch.cuda.synchronize()
+    err = (got.cpu() - want).abs().max().item()
+    b, j, n, _ = cans.shape
+    bound_ms, bound_by = meanshift_bound(b * j, n, ecfg.mean_shift_iters)
+    row = {"phase": "kernel", "name": "weighted_mean_shift",
+           "shape": {"b": b, "j": j, "n": n},
+           "zero_weight_problems": int((weights == 0).all(-1).sum()),
+           "max_abs_err": err,
+           "ms": cuda_ms(run, iters),
+           "plain_ms": cuda_ms(lambda: decode.weighted_mean_shift(
+               d_cans, d_w, ecfg.mean_shift_iters, ecfg.band_width,
+               ecfg.vote_grid), 5),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(row)
+    check(bool(torch.isfinite(got).all()), "weighted_mean_shift: NaN")
+    check(err <= K2_TOL, f"weighted_mean_shift: max |err| {err} > {K2_TOL}")
+    return row
+
+
+# --------------------------------------------------------------------------
 # model and serving
 # --------------------------------------------------------------------------
 
@@ -220,6 +426,55 @@ def phase_model(variables, net_cfg: NetConfig, device, b: int = 2):
           "max_abs_err": errs, "max_abs_head": scale, "tol": HEAD_TOL})
     for k, e in errs.items():
         check(e <= HEAD_TOL, f"model head {k}: card vs CPU {e} > {HEAD_TOL}")
+
+
+def int8_steps(net, x):
+    """Heads of ``net(x)`` and the int8 side of every :class:`QTensor` that
+    a layer hands on, on the CPU, by layer name."""
+    qs = {}
+    hook = lambda name: lambda mod, args, out: (
+        qs.__setitem__(name, out.q.cpu())
+        if isinstance(out, QTensor) and out.q is not None else None)
+    handles = [m.register_forward_hook(hook(name))
+               for name, m in net.named_modules() if hasattr(m, "calibrating")]
+    try:
+        with torch.inference_mode():
+            heads = net(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return {k: [t.cpu() for t in v] for k, v in heads.items()}, qs
+
+
+def phase_model_int8(variables, net_cfg: NetConfig, device, b: int = 2):
+    """The calibrated int8 net (float32 views) on ``device`` (K3) against
+    the same net on the CPU (K3's plain version), with the statistics the
+    CPU recorded: head error and the int8 outputs that differ, layer by
+    layer."""
+    x = torch.from_numpy(seeded_depth(np.random.default_rng(SEED + 1), b,
+                                      *net_cfg.input_hw))
+    cpu = int8_net(variables, net_cfg, "cpu", x)
+    qtree = {**quantize_weights(fold_batch_norm(variables,
+                                                net_cfg.bn_epsilon)),
+             "act_stats": act_stats_to_flax(cpu)}
+    card = from_flax(qtree, net_cfg).to(device)
+    want, q_want = int8_steps(cpu, x)
+    got, q_got = int8_steps(card, x.to(device))
+    errs = {k: max((g - w).abs().max().item() for g, w in zip(got[k],
+                                                               want[k]))
+            for k in want}
+    flips = {k: int((q_got[k] != q).sum()) for k, q in q_want.items()}
+    emit({"phase": "model_int8", "config": net_cfg.__dict__, "batch": b,
+          "max_abs_err": errs, "layers_compared": len(flips),
+          "int8_steps_compared": sum(q.numel() for q in q_want.values()),
+          "int8_steps_flipped": sum(flips.values()),
+          "layers_with_flips": {k: v for k, v in flips.items() if v},
+          "tol": HEAD_TOL})
+    check(q_got.keys() == q_want.keys() and len(flips) > 100,
+          "model_int8: the card and the CPU nets quantize other layers")
+    for k, e in errs.items():
+        check(e <= HEAD_TOL, f"int8 model head {k}: card vs CPU {e} > "
+                             f"{HEAD_TOL}")
 
 
 def hand_frames(rng, b: int):
@@ -255,106 +510,152 @@ def decode_flips(heads_a, heads_b, ecfg):
 
 def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
                   n_frames: int = 1024, max_batch: int = 256,
-                  buckets=(1, 64, 256), reps: int = 3, n_cpu: int = 8):
+                  buckets=(1, 64, 256), reps: int = 3, n_cpu: int = 8,
+                  n_calib: int = 64):
+    """The main path. Returns the launch counts of the run, the predictors,
+    and the frames and boxes served."""
     rng = np.random.default_rng(SEED + 2)
     distinct, bbxs = hand_frames(rng, min(n_frames, 256))
     tile = -(-n_frames // len(distinct))
     frames = np.tile(distinct, (tile, 1, 1))[:n_frames]
     bbxs = np.tile(bbxs, (tile, 1))[:n_frames]
+    # int8 serves as bench.py serves it: calibrated, bfloat16 float views
+    calib = hand_frames(np.random.default_rng(SEED + 4), n_calib)
+    bf16 = NetConfig(**{**net_cfg.__dict__, "compute_dtype": "bfloat16"})
 
     preds = {}
     t0 = time.perf_counter()
-    for dtype in ("float32", "bfloat16"):
-        cfg = NetConfig(**{**net_cfg.__dict__, "compute_dtype": dtype})
-        preds[dtype] = Predictor(variables, cfg, ICVL, max_batch=max_batch,
-                                 batch_buckets=buckets, device=device)
-        preds[dtype].warmup()
+    for name, cfg, kw in (
+            ("float32", NetConfig(**{**net_cfg.__dict__,
+                                     "compute_dtype": "float32"}), {}),
+            ("bfloat16", bf16, {}),
+            ("int8", bf16, dict(quantize=True, calibration=calib)),
+            ("int8_dynamic", bf16, dict(quantize=True))):
+        preds[name] = Predictor(variables, cfg, ICVL, max_batch=max_batch,
+                                batch_buckets=buckets, device=device, **kw)
+        preds[name].warmup()
     warmup_s = time.perf_counter() - t0
+    convs = sum(1 for m in preds["int8"].net.modules()
+                if isinstance(m, layers.ConvBR))
 
     # the main path: counts zeroed just before, read just after
     fd.fused_decode.launches = 0
+    k3.int8_gemm_requant.launches = 0
+    k2.weighted_mean_shift_cuda.launches = 0
     secs, xyz = {}, {}
-    for dtype, pred in preds.items():
-        secs[dtype] = []
+    for name in ("float32", "bfloat16", "int8"):
+        secs[name] = []
         for _ in range(reps):
             t0 = time.perf_counter()
-            xyz[dtype] = pred(frames, bbxs)
-            secs[dtype].append(time.perf_counter() - t0)
+            xyz[name] = preds[name](frames, bbxs)
+            secs[name].append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    xyz["int8_dynamic"] = preds["int8_dynamic"](frames, bbxs)
+    secs["int8_dynamic"] = [time.perf_counter() - t0]
     lone = preds["float32"](frames[:1], bbxs[:1])
-    launches = {"fused_decode": fd.fused_decode.launches}
-    dispatches = 2 * reps * -(-n_frames // max_batch) + 1
+    launches = {"fused_decode": fd.fused_decode.launches,
+                "int8_gemm_requant": k3.int8_gemm_requant.launches,
+                "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches}
+    per_request = -(-n_frames // max_batch)
+    int8_dispatches = (reps + 1) * per_request
+    dispatches = 2 * reps * per_request + int8_dispatches + 1
 
     on_cuda = torch.device(device).type == "cuda"
     emit({"phase": "serving", "config": net_cfg.__dict__,
           "frames_per_request": n_frames, "frame_hw": [240, 320],
           "frame_dtype": "uint16", "max_batch": max_batch,
           "batch_buckets": list(preds["float32"].batch_buckets),
+          "int8": {"compute_dtype": "bfloat16", "calibration_frames": n_calib,
+                   "convs_per_forward": convs},
           "warmup_s": warmup_s,
           "frames_per_s": {d: n_frames / statistics.median(s)
                            for d, s in secs.items()},
           "request_s": secs, "dispatches": dispatches,
-          "launches": launches})
+          "int8_dispatches": int8_dispatches, "launches": launches})
     j3 = 3 * net_cfg.num_joint
-    for dtype, out in xyz.items():
+    for name, out in xyz.items():
         check(out.shape == (n_frames, j3) and bool(np.isfinite(out).all()),
-              f"serving {dtype}: shape {out.shape} or non-finite xyz")
+              f"serving {name}: shape {out.shape} or non-finite xyz")
     if on_cuda:
         check(launches["fused_decode"] == dispatches,
               f"fused_decode launched {launches['fused_decode']} times in "
               f"{dispatches} dispatches")
+        check(launches["int8_gemm_requant"] == convs * int8_dispatches,
+              f"int8_gemm_requant launched {launches['int8_gemm_requant']} "
+              f"times, not {convs} convolutions x {int8_dispatches} "
+              f"dispatches")
     else:
-        check(launches["fused_decode"] == 0, "a kernel launched on the CPU")
+        check(not any(launches.values()), "a kernel launched on the CPU")
 
     # the kernel against the plain decode on the served heads
     b = min(n_frames, max_batch)
     dev_frames = torch.from_numpy(frames[:b]).to(device)
     dev_bbxs = torch.from_numpy(bbxs[:b]).to(device)
     checks = {}
-    for dtype, pred in preds.items():
+    for name, pred in preds.items():
         heads = pred._heads(dev_frames, dev_bbxs)
         normed = decode.decode_poses(*heads, pred.ecfg)["normed"]
         err = (normed.cpu() - plain_on_cpu(heads)).abs().max().item()
-        check(err <= K1_TOL, f"serving {dtype}: kernel vs plain decode {err}")
+        check(err <= K1_TOL, f"serving {name}: kernel vs plain decode {err}")
         xyz_k = unnorm_xyz_pose(normed.reshape(b, -1), heads[5]).cpu().numpy()
-        checks[dtype] = {"kernel_vs_plain_normed": err,
-                         "served_vs_heads_decode_mm": float(
-                             np.abs(xyz_k - xyz[dtype][:b]).max())}
-    gap = np.linalg.norm((xyz["bfloat16"] - xyz["float32"]).reshape(
-        n_frames, -1, 3), axis=-1)
-    checks["bfloat16_vs_float32_mm"] = {"median": float(np.median(gap)),
-                                        "max": float(gap.max())}
+        checks[name] = {"kernel_vs_plain_normed": err,
+                        "served_vs_heads_decode_mm": float(
+                            np.abs(xyz_k - xyz[name][:b]).max())}
+    for name in ("bfloat16", "int8", "int8_dynamic"):
+        gap = np.linalg.norm((xyz[name] - xyz["float32"]).reshape(
+            n_frames, -1, 3), axis=-1)
+        checks[f"{name}_vs_float32_mm"] = {"median": float(np.median(gap)),
+                                           "max": float(gap.max())}
     checks["lone_vs_batched_mm"] = float(np.abs(lone[0]
                                                 - xyz["float32"][0]).max())
 
-    # the whole path against a CPU predictor on the same weights
+    # the whole path against CPU predictors on the same weights (int8: and
+    # the statistics the card recorded)
     n = min(n_cpu, n_frames)
-    cpu = Predictor(variables, net_cfg, ICVL, max_batch=n, device="cpu")
-    heads_cpu = cpu._heads(torch.from_numpy(frames[:n]),
-                           torch.from_numpy(bbxs[:n]))
-    heads_dev = tuple(t.cpu() for t in preds["float32"]._heads(
-        dev_frames[:n], dev_bbxs[:n]))
-    got = preds["float32"](frames[:n], bbxs[:n]).reshape(n, -1, 3)
-    want = cpu(frames[:n], bbxs[:n]).reshape(n, -1, 3)
-    off = np.abs(got - want).max(axis=-1) > XYZ_TOL_MM
-    flips = decode_flips(heads_cpu, heads_dev, cpu.ecfg).numpy()
-    head_err = max((a - c).abs().max().item()
-                   for a, c in zip(heads_dev[:3], heads_cpu[:3]))
-    checks["card_vs_cpu"] = {
-        "frames": n, "joints": int(off.size),
-        "max_mm": float(np.abs(got - want).max()),
-        "max_mm_without_flips": float(np.abs(got - want)[~flips].max(
-            initial=0.0)),
-        "joints_off": int(off.sum()), "joints_at_a_decode_flip": int(
-            flips.sum()), "max_head_err": head_err}
+    qtree = {**quantize_weights(fold_batch_norm(variables,
+                                                net_cfg.bn_epsilon)),
+             "act_stats": act_stats_to_flax(preds["int8"].net)}
+    for name, cpu in (("float32", Predictor(variables, net_cfg, ICVL,
+                                            max_batch=n, device="cpu")),
+                      ("int8", Predictor(qtree, bf16, ICVL, max_batch=n,
+                                         device="cpu"))):
+        checks[f"card_vs_cpu_{name}"] = card_vs_cpu(
+            preds[name], cpu, frames[:n], bbxs[:n], dev_frames[:n],
+            dev_bbxs[:n])
     emit({"phase": "serving_checks", **checks})
-    check(not (off & ~flips).any(),
-          f"card vs CPU: {int((off & ~flips).sum())} joints off by more "
-          f"than {XYZ_TOL_MM} mm with no decode flip between the heads")
-    check(head_err <= HEAD_TOL, f"card vs CPU heads {head_err}")
+    for name in ("float32", "int8"):
+        c = checks[f"card_vs_cpu_{name}"]
+        check(c["joints_off_without_a_flip"] == 0,
+              f"card vs CPU {name}: {c['joints_off_without_a_flip']} joints "
+              f"off by more than {XYZ_TOL_MM} mm with no decode flip")
+    check(checks["card_vs_cpu_float32"]["max_head_err"] <= HEAD_TOL,
+          f"card vs CPU heads {checks['card_vs_cpu_float32']['max_head_err']}")
 
     emit({"phase": "serving_stages", "batch": b,
           **{d: stage_ms(p, frames[:b], bbxs[:b]) for d, p in preds.items()}})
-    return launches
+    return launches, preds, frames, bbxs
+
+
+def card_vs_cpu(pred, cpu, frames, bbxs, dev_frames, dev_bbxs):
+    """A card predictor against a CPU one on the same requests: xyz, the
+    heads, and the joints where the plain decode crosses a discontinuity
+    between the two sets of heads."""
+    n = len(frames)
+    heads_cpu = cpu._heads(torch.from_numpy(frames), torch.from_numpy(bbxs))
+    heads_dev = tuple(t.cpu() for t in pred._heads(dev_frames, dev_bbxs))
+    got = pred(frames, bbxs).reshape(n, -1, 3)
+    want = cpu(frames, bbxs).reshape(n, -1, 3)
+    off = np.abs(got - want).max(axis=-1) > XYZ_TOL_MM
+    flips = decode_flips(heads_cpu, heads_dev, cpu.ecfg).numpy()
+    return {"frames": n, "joints": int(off.size),
+            "max_mm": float(np.abs(got - want).max()),
+            "max_mm_without_flips": float(np.abs(got - want)[~flips].max(
+                initial=0.0)),
+            "joints_off": int(off.sum()),
+            "joints_at_a_decode_flip": int(flips.sum()),
+            "joints_off_without_a_flip": int((off & ~flips).sum()),
+            "max_head_err": max((a - c).abs().max().item()
+                                for a, c in zip(heads_dev[:3], heads_cpu[:3]))}
 
 
 @torch.inference_mode()
@@ -401,8 +702,14 @@ def main() -> int:
     rows = phase_kernel("cuda")
     net_cfg = NetConfig()
     variables = init_variables(net_cfg, seed=SEED)
+    _, k3_total = phase_kernel_int8(variables, net_cfg, "cuda")
     phase_model(variables, net_cfg, "cuda")
-    launches = phase_serving(variables, "cuda", net_cfg)
+    phase_model_int8(variables, net_cfg, "cuda")
+    launches, preds, frames, bbxs = phase_serving(variables, "cuda", net_cfg)
+    b = 256
+    k2_row = phase_kernel_meanshift(preds["float32"]._heads(
+        torch.from_numpy(frames[:b]).cuda(), torch.from_numpy(bbxs[:b]).cuda()),
+        preds["float32"].ecfg, "cuda")
 
     main_row = rows[0]
     emit({"kernels": [{
@@ -413,7 +720,24 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]})
+        "library_ms": main_row["library_ms"]}, {
+        # one forward of the int8 net at batch 256: every call, summed
+        "name": "int8_gemm_requant", "route": "cuda",
+        "source": "densereg_torch/csrc/int8_gemm.cu",
+        "replaces": "densereg_tpu/ops/int8_gemm.py:35",
+        "launches": launches["int8_gemm_requant"],
+        "max_abs_err": k3_total["max_abs_err"],
+        "ms": k3_total["ms"], "plain_ms": k3_total["plain_ms"],
+        "bound_ms": k3_total["bound_ms"], "bound_by": k3_total["bound_by"],
+        "library_ms": k3_total["library_ms"]}, {
+        "name": "weighted_mean_shift", "route": "cuda",
+        "source": "densereg_torch/csrc/meanshift.cu",
+        "replaces": "densereg_tpu/ops/meanshift_pallas.py:33",
+        "launches": launches["weighted_mean_shift"],
+        "max_abs_err": k2_row["max_abs_err"],
+        "ms": k2_row["ms"], "plain_ms": k2_row["plain_ms"],
+        "bound_ms": k2_row["bound_ms"], "bound_by": k2_row["bound_by"],
+        "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -49,6 +49,10 @@ class NetConfig:
     # models.fold.fold_batch_norm)
     fold_bn: bool = False
     bn_epsilon: float = 1e-3
+    # int8 convolutions on a folded net (weights from
+    # models.quantize.quantize_weights): per-channel weights, per-tensor
+    # activations, channels-last, every convolution on the int8 GEMM kernel
+    quantize: bool = False
 
     @property
     def output_hw(self) -> Tuple[int, int]:

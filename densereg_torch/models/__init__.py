@@ -1,16 +1,28 @@
-from densereg_torch.models.bridge import from_flax, init_variables
+from densereg_torch.models.bridge import (
+    act_stats_to_flax,
+    from_flax,
+    init_variables,
+)
 from densereg_torch.models.fold import fold_batch_norm
 from densereg_torch.models.hourglass import DenseRegNet, Hourglass
 from densereg_torch.models.layers import (
     BatchRenorm,
     ConvBR,
+    QTensor,
     Residual,
+    as_float,
     max_pool_same,
     upsample_nearest_2x,
 )
+from densereg_torch.models.quantize import (
+    calibrate,
+    quantize_weights,
+    quantized_net_config,
+)
 
 __all__ = [
-    "BatchRenorm", "ConvBR", "DenseRegNet", "Hourglass", "Residual",
+    "BatchRenorm", "ConvBR", "DenseRegNet", "Hourglass", "QTensor",
+    "Residual", "act_stats_to_flax", "as_float", "calibrate",
     "fold_batch_norm", "from_flax", "init_variables", "max_pool_same",
-    "upsample_nearest_2x",
+    "quantize_weights", "quantized_net_config", "upsample_nearest_2x",
 ]

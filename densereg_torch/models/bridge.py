@@ -48,19 +48,40 @@ def is_folded(variables) -> bool:
     return not variables.get("batch_stats")
 
 
-def from_flax(variables, net_cfg: NetConfig) -> DenseRegNet:
-    """Build a :class:`DenseRegNet` from ``{"params", "batch_stats"}``, or
-    from a folded ``{"params"}`` (``models.fold.fold_batch_norm``).
+def is_quantized(variables) -> bool:
+    """Whether the tree is an int8 one (``models.quantize.quantize_weights``)."""
+    return any(k.endswith(".kernel_q") for k in _flatten(variables["params"]))
 
-    ``net_cfg.fold_bn`` is set from the tree. Every leaf is consumed exactly
-    once: a missing or left-over key raises ``KeyError``.
+
+def from_flax(variables, net_cfg: NetConfig) -> DenseRegNet:
+    """Build a :class:`DenseRegNet` from ``{"params", "batch_stats"}``, from
+    a folded ``{"params"}`` (``models.fold.fold_batch_norm``), or from an
+    int8 ``{"params"}`` (``models.quantize.quantize_weights``) with, when
+    calibrated, its ``act_stats`` collection (``amax``/``out_amax``).
+
+    ``net_cfg.fold_bn`` and ``net_cfg.quantize`` are set from the tree.
+    Every leaf is consumed exactly once: a missing or left-over key raises
+    ``KeyError``. ``kernel_q`` stays int8 and HWIO; float kernels become
+    float32 OIHW.
     """
     folded = is_folded(variables)
-    net = DenseRegNet(dataclasses.replace(net_cfg, fold_bn=folded))
+    quantized = is_quantized(variables)
+    net = DenseRegNet(dataclasses.replace(net_cfg, fold_bn=folded,
+                                          quantize=quantized))
     flat = _flatten(variables["params"])
     if not folded:
         flat.update(_flatten(variables["batch_stats"]))
-    want = net.state_dict()
+    stats = _flatten(variables.get("act_stats", {}))
+    for key, val in stats.items():
+        path, leaf = key.rsplit(".", 1)
+        try:
+            mod = net.get_submodule(path) if quantized else None
+        except AttributeError:
+            mod = None
+        if leaf not in ("amax", "out_amax") or not hasattr(mod, leaf):
+            raise KeyError(f"act_stats leaf {key} matches no int8 layer")
+        setattr(mod, leaf, torch.tensor(float(val), dtype=torch.float32))
+    want = {k: v for k, v in net.state_dict().items() if k not in stats}
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
@@ -69,15 +90,30 @@ def from_flax(variables, net_cfg: NetConfig) -> DenseRegNet:
                        f"left over {extra[:8]}{'...' if len(extra) > 8 else ''}")
     state = {}
     for key, ref in want.items():
-        val = flat[key].astype(np.float32)
+        if key.endswith(".kernel_q"):
+            val = flat[key].astype(np.int8)
+        else:
+            val = flat[key].astype(np.float32)
         if key.endswith(".kernel"):
             val = val.transpose(3, 2, 0, 1)
         if val.shape != tuple(ref.shape):
             raise ValueError(f"{key}: shape {val.shape}, DenseRegNet wants "
                              f"{tuple(ref.shape)}")
         state[key] = torch.from_numpy(np.ascontiguousarray(val))
-    net.load_state_dict(state, strict=True)
+    net.load_state_dict(state, strict=False)
     return net.eval()
+
+
+def act_stats_to_flax(net: DenseRegNet) -> dict:
+    """The recorded calibration statistics of an int8 net as the JAX
+    package's ``act_stats`` collection: a nested dict of float32 scalars."""
+    flat = {}
+    for path, mod in net.named_modules():
+        for leaf in ("amax", "out_amax"):
+            val = getattr(mod, leaf, None)
+            if isinstance(val, torch.Tensor):
+                flat[f"{path}.{leaf}"] = np.float32(val.item())
+    return _unflatten(flat)
 
 
 def seeded_depth(rng, b: int, h: int, w: int) -> np.ndarray:

@@ -18,33 +18,48 @@ from densereg_torch.config import NetConfig
 from densereg_torch.models.layers import (
     ConvBR,
     Residual,
+    as_float,
     max_pool_same,
+    quantize_output,
     upsample_nearest_2x,
 )
 
 
 class Hourglass(nn.Module):
     """Recursive hourglass: ``upper = res(x)``; ``lower = res(pool3x3/2(x))``
-    -> recurse -> ``res`` -> nearest x2 upsample; sum."""
+    -> recurse -> ``res`` -> nearest x2 upsample; sum (requantized in a
+    calibrated int8 graph)."""
 
     def __init__(self, depth: int, ch: int, kernel_size: int = 3,
-                 use_bn: bool = True, bn_epsilon: float = 1e-3):
+                 use_bn: bool = True, bn_epsilon: float = 1e-3,
+                 quantized: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel_size = kernel_size
+        self.quantized, self.dtype = quantized, dtype
         res = lambda: Residual(ch, kernel_size=kernel_size, use_bn=use_bn,
-                               bn_epsilon=bn_epsilon)
+                               bn_epsilon=bn_epsilon, quantized=quantized,
+                               dtype=dtype)
         self.upper = res()
         self.lower_in = res()
-        self.inner = (Hourglass(depth - 1, ch, kernel_size, use_bn, bn_epsilon)
+        self.inner = (Hourglass(depth - 1, ch, kernel_size, use_bn,
+                                bn_epsilon, quantized, dtype)
                       if depth > 1 else None)
         self.lower_out = res()
+        if quantized:
+            self.calibrating = False
+            self.register_buffer("out_amax", None)
 
     def forward(self, x):
+        q = self.quantized           # int8 runs NHWC
         upper = self.upper(x)
-        lower = self.lower_in(max_pool_same(x, self.kernel_size, 2))
+        lower = self.lower_in(max_pool_same(x, self.kernel_size, 2, q))
         if self.inner is not None:
             lower = self.inner(lower)
-        return upper + upsample_nearest_2x(self.lower_out(lower))
+        up = upsample_nearest_2x(self.lower_out(lower), q)
+        if not q:
+            return upper + up
+        return quantize_output(self, as_float(upper) + as_float(up),
+                               self.dtype)
 
 
 class DenseRegNet(nn.Module):
@@ -61,17 +76,28 @@ class DenseRegNet(nn.Module):
             raise NotImplementedError(
                 f"net_module {cfg.net_module!r} is not ported yet; "
                 "densereg_torch builds 'um_v1' only")
+        if cfg.quantize and not cfg.fold_bn:
+            raise ValueError("an int8 net is a folded one: set fold_bn "
+                             "(models.quantize.quantized_net_config)")
         self.cfg = cfg
         f, j = cfg.num_fea, cfg.num_joint
         bn = dict(use_bn=not cfg.fold_bn, bn_epsilon=cfg.bn_epsilon)
+        if cfg.quantize:
+            bn.update(quantized=True, dtype=cfg.torch_dtype)
+        def conv(in_ch, out_ch, k, use, **kw):
+            """``use``: what a calibrated int8 output's consumers read."""
+            kw = {**bn, **kw}
+            if cfg.quantize:
+                kw["out_use"] = use
+            return ConvBR(in_ch, out_ch, k, **kw)
 
         def res(in_ch, out_ch=None):
             return Residual(in_ch, out_ch, cfg.kernel_size, **bn)
 
         def head(in_ch, out_ch):
-            return ConvBR(in_ch, out_ch, 1, use_bn=False, relu=False)
+            return conv(in_ch, out_ch, 1, "f", use_bn=False, relu=False)
 
-        self.stem_conv = ConvBR(1, 32, 7, stride=2, **bn)
+        self.stem_conv = conv(1, 32, 7, "q", stride=2)
         self.stem_res1 = res(32, 64)
         self.stem_res2 = res(64)
         self.stem_res3 = res(64, f)
@@ -80,7 +106,7 @@ class DenseRegNet(nn.Module):
             layers = {
                 "hg": Hourglass(cfg.hourglass_depth, f, cfg.kernel_size, **bn),
                 "ll_res": res(f),
-                "ll_conv": ConvBR(f, f, 1, **bn),
+                "ll_conv": conv(f, f, 1, "both"),
                 "hm_head": head(f, j),
                 "hm3_res": res(f + 3, 128),
                 "hm3_head": head(128, j),
@@ -89,8 +115,8 @@ class DenseRegNet(nn.Module):
                 "umm_resA": res(f + 2 * j, 256),
                 "umm_resB": res(256),
                 "um_comb": res(512),
-                "um_fc1": ConvBR(515, 512, 1, use_bn=False),
-                "um_fc2": ConvBR(512, 512, 1, use_bn=False),
+                "um_fc1": conv(515, 512, 1, "q", use_bn=False),
+                "um_fc2": conv(512, 512, 1, "q", use_bn=False),
                 "um_head": head(512, 3 * j),
             }
             if i < cfg.num_stack - 1:
@@ -100,6 +126,8 @@ class DenseRegNet(nn.Module):
                 self.add_module(name + s, mod)
 
     def forward(self, dms: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+        if self.cfg.quantize:
+            return self._forward_int8(dms)
         c = self.cfg
         dtype = c.torch_dtype
         x = dms.permute(0, 3, 1, 2).to(dtype)                 # (b, 1, H, W)
@@ -141,4 +169,52 @@ class DenseRegNet(nn.Module):
             if i < c.num_stack - 1:
                 tmp = m("inter_out")(torch.cat([hm, hm3, um], dim=1))
                 hg_in = hg_in + tmp + m("inter_ll")(ll)
+        return outs
+
+    def _forward_int8(self, dms: torch.Tensor):
+        """The int8 net, NHWC throughout, with the JAX package's float views
+        (``as_float``) in the compute dtype: concatenations, the masked
+        branch, the heads and the inter-stack sum read float; every
+        convolution reads int8."""
+        c = self.cfg
+        dtype = c.torch_dtype
+        x = dms.to(dtype)                                     # (b, H, W, 1)
+        b = x.shape[0]
+
+        y = self.stem_res1(self.stem_conv(x))
+        y = max_pool_same(y, 2, 2, channels_last=True)
+        hg_in = self.stem_res3(self.stem_res2(y))
+
+        out_h, out_w = c.output_hw
+        tiny = x[:, ::x.shape[1] // out_h, ::x.shape[2] // out_w]
+        uu = torch.arange(out_w, dtype=dtype, device=x.device) / (out_w / 2) - 1.0
+        vv = torch.arange(out_h, dtype=dtype, device=x.device) / (out_h / 2) - 1.0
+        uvd = torch.cat([uu.view(1, 1, out_w, 1).expand(b, out_h, out_w, 1),
+                         vv.view(1, out_h, 1, 1).expand(b, out_h, out_w, 1),
+                         tiny], dim=-1)
+        invalid = tiny < -0.9
+        cat = lambda ts: torch.cat([as_float(t) for t in ts], dim=-1)
+
+        outs: Dict[str, List[torch.Tensor]] = {"hm": [], "hm3": [], "um": []}
+        for i in range(c.num_stack):
+            m = lambda name: getattr(self, f"{name}_s{i}")
+            hg = m("hg")(hg_in)
+            ll = m("ll_conv")(m("ll_res")(hg))
+            hm = as_float(m("hm_head")(ll))
+            hm3 = as_float(m("hm3_head")(m("hm3_res")(cat([ll, uvd]))))
+
+            um_cat = cat([hg, hm, hm3])
+            um_in = m("um_resB")(m("um_resA")(um_cat))
+            um_mask = torch.where(invalid, torch.zeros_like(um_cat), um_cat)
+            um_mask = m("umm_resB")(m("umm_resA")(um_mask))
+            comb = cat([m("um_comb")(cat([um_in, um_mask])), uvd])
+            um = as_float(m("um_head")(m("um_fc2")(m("um_fc1")(comb))))
+
+            for key, v in (("hm", hm), ("hm3", hm3), ("um", um)):
+                outs[key].append(v.float())
+
+            if i < c.num_stack - 1:
+                tmp = m("inter_out")(cat([hm, hm3, um]))
+                hg_in = (as_float(hg_in) + as_float(tmp)
+                         + as_float(m("inter_ll")(ll)))
         return outs

@@ -1,13 +1,24 @@
-"""Building blocks of the stacked hourglass, NCHW, eval form.
+"""Building blocks of the stacked hourglass, eval form: NCHW in float, NHWC
+in int8.
 
 Mirrors ``densereg_tpu/models/layers.py``. Parameter names follow the Flax
 tree (``conv/{kernel,bias}``, ``bn/{gamma,beta}`` with moving statistics
-``bn/{mean,var}``) so that ``models.bridge`` maps one onto the other. Kernels
-are stored OIHW.
+``bn/{mean,var}``; int8 ``kernel_q``/``scale``/``bias`` and the calibrated
+``amax``/``out_amax``) so that ``models.bridge`` maps one onto the other.
+Float kernels are stored OIHW, int8 ones HWIO.
 
 Padding is XLA's ``SAME``: for a stride-2 window on an even input it is
 uneven (the 7x7/2 stem pads 2 before and 3 after, a 3x3/2 pool 0 and 1), so
 it is applied explicitly, never through symmetric ``padding=``.
+
+The int8 form (``quantized=True``, weights from
+``models.quantize.quantize_weights``) runs channels-last: every convolution
+is one call of the int8 GEMM kernel (``ops.int8_gemm``), over the
+activation itself for a 1x1 convolution and over an int8 im2col otherwise.
+Activations are quantized per tensor: with the scale of an incoming
+:class:`QTensor`, else with the calibrated ``amax``, else with the batch's
+own ``max|x|`` (dynamic). A calibrated layer also quantizes its own output
+(``out_amax``) and hands on a :class:`QTensor`.
 """
 
 from __future__ import annotations
@@ -18,12 +29,99 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from densereg_torch.ops.int8_gemm import int8_gemm_requant, quantize
+
+# what a calibrated int8 layer's consumers read of its output: the int8
+# side (convolutions), the float side (sums, concatenations, heads) or both
+OUT_USES = ("q", "f", "both")
+
 
 def same_pads(size: int, window: int, stride: int):
     """(before, after) padding of XLA's SAME for one spatial axis."""
     out = -(-size // stride)
     total = max((out - 1) * stride + window - size, 0)
     return total // 2, total - total // 2
+
+
+class QTensor:
+    """A quantized NHWC activation between calibrated int8 layers: ``f`` the
+    float result of the producing layer (in the compute dtype), ``q`` its
+    int8 quantization with the per-tensor scale ``s`` (a 0-d float32
+    tensor). Convolutions read ``q`` and ``s``; sums, concatenations and
+    heads read ``f``. A producer whose consumers read one side only leaves
+    the other None. No operator overloads: a site that was not taught about
+    it fails loudly."""
+
+    __slots__ = ("f", "q", "s")
+
+    def __init__(self, f, q, s):
+        self.f = f
+        self.q = q
+        self.s = s
+
+
+def as_float(x):
+    """The float view of a maybe-:class:`QTensor` value."""
+    if isinstance(x, QTensor):
+        if x.f is None:
+            raise ValueError("QTensor has no float side: its producer was "
+                             "told that only convolutions read it")
+        return x.f
+    return x
+
+
+def act_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-8) / 127``, a 0-d float32 tensor on ``amax``'s device,
+    by an IEEE division (a CUDA division by a Python number goes through
+    the reciprocal)."""
+    amax = torch.clamp_min(amax.float(), 1e-8)
+    return amax / amax.new_full((), 127.0)
+
+
+def _record_amax(mod: nn.Module, name: str, x: torch.Tensor) -> torch.Tensor:
+    """While calibrating: this batch's ``max|x|``, kept as a running max in
+    the buffer ``name``. Returns the batch's own value, which is what the
+    layer quantizes with during calibration."""
+    cur = x.float().abs().amax()
+    old = getattr(mod, name)
+    setattr(mod, name, cur if old is None else torch.maximum(old, cur))
+    return cur
+
+
+def quantize_output(mod: nn.Module, y: torch.Tensor, dtype: torch.dtype):
+    """Producer-side quantization of a calibrated graph: a :class:`QTensor`
+    of ``y`` with the module's ``out_amax`` (recorded while calibrating);
+    an uncalibrated module returns ``y`` in ``dtype``."""
+    if not (mod.calibrating or mod.out_amax is not None):
+        return y.to(dtype)
+    if mod.calibrating:
+        s = act_scale(_record_amax(mod, "out_amax", y))
+    else:
+        s = act_scale(mod.out_amax)
+    return QTensor(y.to(dtype), quantize(y, s), s)
+
+
+def im2col_nhwc(x: torch.Tensor, k: int, stride: int):
+    """NHWC int8 ``x`` -> the ``(b * oh * ow, k * k * C)`` matrix of a
+    k x k SAME convolution, K in (kh, kw, C) order (an HWIO kernel's), and
+    ``(b, oh, ow)``. Built from k^2 strided slices of the zero-padded
+    tensor: int8 0 is float 0, so the padding is exact. Rows start every
+    16 bytes. A 1x1 stride-1 convolution reads ``x`` itself."""
+    b, h, w, c = x.shape
+    oh, ow = -(-h // stride), -(-w // stride)
+    if k == 1 and stride == 1:
+        return x.reshape(b * h * w, c), (b, h, w)
+    ph, pw = same_pads(h, k, stride), same_pads(w, k, stride)
+    xp = x.new_zeros((b, h + sum(ph), w + sum(pw), c))
+    xp[:, ph[0]:ph[0] + h, pw[0]:pw[0] + w] = x
+    kk = k * k * c
+    cols = x.new_empty((b, oh, ow, -(-kk // 16) * 16))
+    for i in range(k):
+        for j in range(k):
+            o = (i * k + j) * c
+            cols[..., o:o + c] = xp[:, i:i + (oh - 1) * stride + 1:stride,
+                                    j:j + (ow - 1) * stride + 1:stride]
+    return cols.reshape(b * oh * ow, -1)[:, :kk], (b, oh, ow)
 
 
 class BatchRenorm(nn.Module):
@@ -72,22 +170,94 @@ class Conv(nn.Module):
 
 
 class ConvBR(nn.Module):
-    """conv -> [batch renorm | bias] -> [ReLU]."""
+    """conv -> [batch renorm | bias] -> [ReLU].
+
+    ``quantized=True`` builds the int8 form instead: buffers ``kernel_q``
+    (HWIO int8), ``scale`` (per output channel, ``s_w``) and ``bias``, and
+    the calibration buffers ``amax`` and ``out_amax`` (None until
+    calibrated). It takes NHWC input, float or :class:`QTensor`, and runs
+    in ``dtype``; ``out_use`` (one of :data:`OUT_USES`) says which side of
+    a calibrated output its consumers read."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
                  stride: int = 1, use_bn: bool = True, relu: bool = True,
-                 groups: int = 1, bn_epsilon: float = 1e-3):
+                 groups: int = 1, bn_epsilon: float = 1e-3,
+                 quantized: bool = False, out_use: str = "both",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = Conv(in_ch, out_ch, kernel, stride, use_bias=not use_bn,
-                         groups=groups)
-        self.bn = BatchRenorm(out_ch, bn_epsilon) if use_bn else None
         self.relu = relu
+        self.quantized = quantized
+        if not quantized:
+            self.conv = Conv(in_ch, out_ch, kernel, stride,
+                             use_bias=not use_bn, groups=groups)
+            self.bn = BatchRenorm(out_ch, bn_epsilon) if use_bn else None
+            return
+        if groups != 1 or use_bn:
+            raise NotImplementedError(
+                "the int8 ConvBR takes folded (bias) convolutions without "
+                "groups")
+        if out_use not in OUT_USES:
+            raise ValueError(f"out_use must be one of {OUT_USES}")
+        self.stride, self.out_use, self.dtype = stride, out_use, dtype
+        self.calibrating = False
+        self.register_buffer("kernel_q", torch.zeros(
+            (kernel, kernel, in_ch, out_ch), dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_ch))
+        self.register_buffer("bias", torch.zeros(out_ch))
+        self.register_buffer("amax", None)
+        self.register_buffer("out_amax", None)
+        self._w = None          # (K, N) K-contiguous view of kernel_q
+        self._w_key = None
 
     def forward(self, x):
+        if self.quantized:
+            return self._quantized_forward(x)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         return F.relu(x) if self.relu else x
+
+    def _gemm_weight(self) -> torch.Tensor:
+        """``kernel_q`` as the GEMM's (K, N) operand, K in im2col order: a
+        view of an (N, K) tensor whose rows start every 16 bytes, made
+        again whenever ``kernel_q`` moves or changes."""
+        key = (self.kernel_q.data_ptr(), self.kernel_q._version)
+        if self._w_key != key:
+            kh, kw, ci, n = self.kernel_q.shape
+            k = kh * kw * ci
+            w = self.kernel_q.new_zeros((n, -(-k // 16) * 16))
+            w[:, :k] = self.kernel_q.reshape(k, n).t()
+            self._w, self._w_key = w[:, :k].t(), key
+        return self._w
+
+    def _quantized_forward(self, x):
+        if isinstance(x, QTensor):
+            x_q, s_x = x.q, x.s
+        else:
+            if self.calibrating:
+                s_x = act_scale(_record_amax(self, "amax", x))
+            elif self.amax is not None:
+                s_x = act_scale(self.amax)
+            else:
+                s_x = act_scale(x.float().abs().amax())
+            x_q = quantize(x, s_x, pitch16=True)
+        cols, (b, oh, ow) = im2col_nhwc(x_q, self.kernel_q.shape[0],
+                                        self.stride)
+        gemm = lambda **kw: int8_gemm_requant(
+            cols, self._gemm_weight(), s_x * self.scale, self.bias,
+            relu=self.relu, **kw)
+        shape = (b, oh, ow, -1)
+        if self.calibrating:
+            _, y = gemm(emit_q=False, emit_f=True, f_dtype=torch.float32)
+            return quantize_output(self, y.reshape(shape), self.dtype)
+        if self.out_amax is None:       # dynamic: the consumer quantizes
+            _, f = gemm(emit_q=False, emit_f=True, f_dtype=self.dtype)
+            return f.reshape(shape)
+        s_y = act_scale(self.out_amax)
+        q, f = gemm(s_y=s_y, emit_q=self.out_use != "f",
+                    emit_f=self.out_use != "q", f_dtype=self.dtype)
+        return QTensor(None if f is None else f.reshape(shape),
+                       None if q is None else q.reshape(shape), s_y)
 
 
 class Residual(nn.Module):
@@ -97,24 +267,44 @@ class Residual(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
                  kernel_size: int = 3, use_bn: bool = True,
-                 bn_epsilon: float = 1e-3):
+                 bn_epsilon: float = 1e-3, quantized: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         out_ch = in_ch if out_ch is None else out_ch
         half = in_ch // 2
-        conv = lambda i, o, k: ConvBR(i, o, k, use_bn=use_bn,
-                                      bn_epsilon=bn_epsilon)
-        self.conv1 = conv(in_ch, half, 1)
-        self.conv2 = conv(half, half, kernel_size)
-        self.conv3 = conv(half, out_ch, 1)
-        self.shortcut = conv(in_ch, out_ch, 1) if out_ch != in_ch else None
+        # int8: the inner convolutions feed convolutions, the last two the sum
+        conv = lambda i, o, k, use: ConvBR(
+            i, o, k, use_bn=use_bn, bn_epsilon=bn_epsilon,
+            quantized=quantized, out_use=use, dtype=dtype)
+        self.conv1 = conv(in_ch, half, 1, "q")
+        self.conv2 = conv(half, half, kernel_size, "q")
+        self.conv3 = conv(half, out_ch, 1, "f")
+        self.shortcut = (conv(in_ch, out_ch, 1, "f") if out_ch != in_ch
+                         else None)
+        self.quantized, self.dtype = quantized, dtype
+        if quantized:
+            self.calibrating = False
+            self.register_buffer("out_amax", None)
 
     def forward(self, x):
         y = self.conv3(self.conv2(self.conv1(x)))
-        return y + (x if self.shortcut is None else self.shortcut(x))
+        s = x if self.shortcut is None else self.shortcut(x)
+        if not self.quantized:
+            return y + s
+        # calibrated graphs requantize the sum, so the next layer reads int8
+        return quantize_output(self, as_float(y) + as_float(s), self.dtype)
 
 
-def max_pool_same(x, window: int, stride: int):
-    """Max pool with SAME padding (padded with -inf) on NCHW."""
+def max_pool_same(x, window: int, stride: int, channels_last: bool = False):
+    """Max pool with SAME padding (padded with -inf) on NCHW, or NHWC with
+    ``channels_last``. Max pooling commutes with monotone quantization, so a
+    :class:`QTensor` (NHWC) is pooled side by side with the same scale."""
+    if isinstance(x, QTensor):
+        pool = lambda t: None if t is None else max_pool_same(t, window,
+                                                              stride, True)
+        return QTensor(pool(x.f), pool(x.q), x.s)
+    if channels_last:
+        return _max_pool_nhwc(x, window, stride)
     ph = same_pads(x.shape[-2], window, stride)
     pw = same_pads(x.shape[-1], window, stride)
     if any(ph + pw):
@@ -122,6 +312,33 @@ def max_pool_same(x, window: int, stride: int):
     return F.max_pool2d(x, window, stride)
 
 
-def upsample_nearest_2x(x):
-    """Nearest x2 upsample on NCHW (pure replication)."""
+def _max_pool_nhwc(x, window: int, stride: int):
+    """The JAX package's form: an elementwise max over the window^2 strided
+    slices of the padded tensor (int8 pads with -128)."""
+    b, h, w, c = x.shape
+    oh, ow = -(-h // stride), -(-w // stride)
+    ph, pw = same_pads(h, window, stride), same_pads(w, window, stride)
+    low = (float("-inf") if x.dtype.is_floating_point
+           else torch.iinfo(x.dtype).min)
+    xp = x.new_full((b, h + sum(ph), w + sum(pw), c), low)
+    xp[:, ph[0]:ph[0] + h, pw[0]:pw[0] + w] = x
+    out = None
+    for i in range(window):
+        for j in range(window):
+            s = xp[:, i:i + (oh - 1) * stride + 1:stride,
+                   j:j + (ow - 1) * stride + 1:stride]
+            out = s if out is None else torch.maximum(out, s)
+    return out
+
+
+def upsample_nearest_2x(x, channels_last: bool = False):
+    """Nearest x2 upsample on NCHW, or NHWC with ``channels_last`` (pure
+    replication, so a :class:`QTensor` upsamples side by side)."""
+    if isinstance(x, QTensor):
+        up = lambda t: None if t is None else upsample_nearest_2x(t, True)
+        return QTensor(up(x.f), up(x.q), x.s)
+    if channels_last:
+        b, h, w, c = x.shape
+        return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(
+            b, 2 * h, 2 * w, c)
     return F.interpolate(x, scale_factor=2, mode="nearest")

@@ -1,0 +1,80 @@
+"""Weighted mean shift on CUDA: ``csrc/meanshift.cu``.
+
+Replaces the TPU kernel
+``densereg_tpu/ops/meanshift_pallas.py::weighted_mean_shift_pallas``. As in
+the JAX package it is exported but on no serving path: the fused decode
+(``ops.fused_decode``) runs the same stage inside its own kernel. On CUDA
+tensors :func:`weighted_mean_shift_cuda` launches the hand-written kernel
+(or raises); on CPU tensors it runs the plain version,
+``decode.weighted_mean_shift``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from densereg_torch import decode
+from densereg_torch.ops import _build
+
+MAX_CANDIDATES = 8   # the kernel is instantiated for n = 1..8
+
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("meanshift")
+    fn = lib.meanshift_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def weighted_mean_shift_cuda(cans, weights, num_it: int = 10,
+                             band_width: float = 0.4,
+                             grid: int = 4) -> torch.Tensor:
+    """cans (b, j, n, 3) and weights (b, j, n), float32 -> (b, j, 3): the
+    start at the last maximal cell of a grid^3 weighted vote, then
+    ``num_it`` Gaussian mean-shift steps; an all-zero weight keeps the
+    grid start.
+
+    Each launch of the kernel adds one to
+    ``weighted_mean_shift_cuda.launches``.
+    """
+    if not cans.is_cuda:
+        return decode.weighted_mean_shift(cans, weights, num_it, band_width,
+                                          grid)
+    b, j, n, three = cans.shape
+    if three != 3 or tuple(weights.shape) != (b, j, n):
+        raise ValueError(f"weighted_mean_shift_cuda: cans {tuple(cans.shape)}"
+                         f" and weights {tuple(weights.shape)} are not "
+                         f"(b, j, n, 3) and (b, j, n)")
+    if cans.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise TypeError("weighted_mean_shift_cuda: float32 only")
+    if weights.device != cans.device:
+        raise ValueError("weighted_mean_shift_cuda: one device for both")
+    if not 1 <= n <= MAX_CANDIDATES:
+        raise ValueError(f"weighted_mean_shift_cuda: 1..{MAX_CANDIDATES} "
+                         f"candidates, got {n}")
+    out = torch.empty((b, j, 3), dtype=torch.float32, device=cans.device)
+    if b * j == 0:
+        return out
+    cans = cans.contiguous()
+    weights = weights.contiguous()
+    with torch.cuda.device(cans.device):
+        err = _lib().meanshift_launch(
+            cans.data_ptr(), weights.data_ptr(), out.data_ptr(), b * j, n,
+            num_it, -1.0 / (2.0 * band_width * band_width), grid,
+            float(grid) - 0.1,
+            torch.cuda.current_stream(cans.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"weighted_mean_shift_cuda: kernel launch failed "
+                           f"with cudaError_t {err}")
+    weighted_mean_shift_cuda.launches += 1
+    return out
+
+
+weighted_mean_shift_cuda.launches = 0

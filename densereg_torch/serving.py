@@ -21,7 +21,8 @@ import torch
 from densereg_torch import decode as decode_mod
 from densereg_torch.config import CameraConfig, EvalConfig, NetConfig
 from densereg_torch.models import fold_batch_norm, from_flax
-from densereg_torch.models.bridge import is_folded
+from densereg_torch.models.bridge import is_folded, is_quantized
+from densereg_torch.models.quantize import calibrate, quantize_weights
 from densereg_torch.preprocess import (
     center_of_mass,
     crop_from_bbx,
@@ -40,9 +41,17 @@ class Predictor:
     ``torch.backends.cuda.matmul.allow_tf32`` set to False): cuDNN would
     otherwise run its float32 convolutions in TF32.
 
-    Not ported yet, and refused with ``NotImplementedError``: int8 serving
-    (``quantize``, ``calibration``), multi-device serving (``mesh``),
-    :meth:`from_checkpoint` and :meth:`from_converted`.
+    ``quantize=True`` serves the int8 net (``models.quantize``):
+    per-channel int8 weights, every convolution on the int8 GEMM kernel
+    (``ops.int8_gemm``) on CUDA. With ``calibration``, a ``(frames_mm,
+    bbxs)`` pair of representative requests (the layout of ``__call__``),
+    the activation scales are recorded once through the predictor's own
+    crop and normalization and are static from then on; without it each
+    batch scales its activations by its own maxima (dynamic).
+    ``compute_dtype`` is then the dtype of the float views between layers.
+
+    Not ported yet, and refused with ``NotImplementedError``: multi-device
+    serving (``mesh``), :meth:`from_checkpoint` and :meth:`from_converted`.
     """
 
     # uint16 integer-mm frames are accepted natively and cast on the device
@@ -52,22 +61,21 @@ class Predictor:
                  max_batch: int = 64, ecfg: EvalConfig = EvalConfig(),
                  fold_bn: bool = True, mesh=None, quantize: bool = False,
                  calibration=None, batch_buckets=None, device="cuda"):
-        if quantize or calibration is not None:
-            raise NotImplementedError(
-                "int8 serving (quantize/calibration) is not ported to "
-                "densereg_torch yet; serve float32 or bfloat16")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving (mesh) is not ported to densereg_torch "
                 "yet; serve on one device")
-        if fold_bn and not is_folded(variables):
+        if (fold_bn or quantize) and not is_folded(variables):
             variables = fold_batch_norm(variables, eps=net_cfg.bn_epsilon)
+        if quantize and not is_quantized(variables):
+            variables = quantize_weights(variables)
         net = from_flax(variables, net_cfg)
         self.net_cfg = net.cfg
         self.device = torch.device(device)
         dtype = self.net_cfg.torch_dtype
-        if self.net_cfg.fold_bn:
-            # no batch statistics left to keep in float32
+        if self.net_cfg.fold_bn and not self.net_cfg.quantize:
+            # no batch statistics left to keep in float32 (the int8 net
+            # keeps its scales and biases in float32, as the JAX one)
             net = net.to(dtype)
         self.net = net.to(self.device)
         if dtype == torch.float32 and self.device.type == "cuda":
@@ -77,6 +85,14 @@ class Predictor:
         self._cam = camera.as_array(device=self.device)
         self.ecfg = ecfg
         self.max_batch = max_batch
+        if quantize and calibration is not None:
+            frames, bbxs = calibration
+            frames = np.asarray(frames, np.float32)
+            if frames.ndim == 3:
+                frames = frames[..., None]
+            calibrate(self.net, [self._normed(
+                self._to_device(frames),
+                self._to_device(np.asarray(bbxs, np.float32)))[0]])
         # max_batch is always a bucket, so every chunk has a home
         if batch_buckets:
             buckets = sorted({int(v) for v in batch_buckets} | {max_batch})
@@ -100,15 +116,21 @@ class Predictor:
             "Predictor.from_converted is not ported to densereg_torch yet")
 
     @torch.inference_mode()
+    def _normed(self, frames: torch.Tensor, bbxs: torch.Tensor):
+        """Device frames and boxes -> the net's input (normalized depth
+        crops), ``cfgs`` and ``coms``."""
+        in_h, in_w = self.net_cfg.input_hw
+        dms, cfgs = crop_from_bbx(frames, bbxs, self._cam, in_h, in_w)
+        coms = center_of_mass(dms, cfgs)
+        return norm_dm(dms, coms), cfgs, coms
+
+    @torch.inference_mode()
     def _heads(self, frames: torch.Tensor, bbxs: torch.Tensor):
         """Device frames and boxes -> the decode's inputs: the last stack's
         ``hm, hm3, um`` (NHWC views), the head-grid depth, ``cfgs`` and
         ``coms``."""
-        in_h, in_w = self.net_cfg.input_hw
         out_h, out_w = self.net_cfg.output_hw
-        dms, cfgs = crop_from_bbx(frames, bbxs, self._cam, in_h, in_w)
-        coms = center_of_mass(dms, cfgs)
-        normed = norm_dm(dms, coms)
+        normed, cfgs, coms = self._normed(frames, bbxs)
         outs = self.net(normed)
         tiny = method2_resize(normed, out_h, out_w)
         return (outs["hm"][-1], outs["hm3"][-1], outs["um"][-1], tiny, cfgs,

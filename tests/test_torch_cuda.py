@@ -6,10 +6,14 @@ run on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerance: 6e-6 normalized (PARITY.md, fused-decode row), against the
-plain decode evaluated on the CPU (``chip_smoke.plain_on_cpu`` says why not
-on the card). The kernel repeats the plain decode's arithmetic operation by
-operation; what is left is ``expf`` against the CPU's ``exp``.
+Tolerances. The fused decode (K1) and the mean shift (K2): 6e-6
+normalized (PARITY.md, fused-decode row), against the plain version
+evaluated on the CPU (``chip_smoke.plain_on_cpu`` says why not on the
+card); the kernels repeat the plain arithmetic operation by operation and
+what is left is ``expf`` against the CPU's ``exp``. The int8 GEMM (K3):
+``q`` bit-identical and ``f`` within 1 ulp of its plain version on the
+card, whose float64 product is exact; an int8 net on K3 equal to the same
+net on the CPU.
 """
 
 import pytest
@@ -24,7 +28,11 @@ from chip_smoke import (  # noqa: E402
     decode_scene,
     plain_on_cpu,
 )
+from densereg_torch import decode  # noqa: E402
+from densereg_torch.models import layers  # noqa: E402
 from densereg_torch.ops import fused_decode as ops  # noqa: E402
+from densereg_torch.ops import int8_gemm as k3  # noqa: E402
+from densereg_torch.ops import meanshift as k2  # noqa: E402
 
 
 @pytest.fixture
@@ -50,6 +58,129 @@ def test_fused_decode_matches_plain(cuda, b, h, w, j):
     assert ops.fused_decode.launches == before + 1
     assert got.shape == (b, j, 3) and torch.isfinite(got).all()
     assert (got.cpu() - want).abs().max().item() <= 6e-6
+
+
+def _gemm_operands(rng, m, k, n, device):
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    sc = torch.from_numpy(rng.uniform(1e-4, 1e-3, n).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(-2, 2, n).astype(np.float32))
+    return [t.to(device) for t in (x, w, sc, b)] + [
+        torch.tensor(0.5, device=device)]
+
+
+# (M, K, N): the s2/f128 int8 graph's odd widths (stem im2col 49, hm3_res
+# 131 -> 65 and its 3x3 585, um_fc1 515), tiles cut at every edge, and an
+# aligned shape; M not a multiple of the 128-row tile
+K3_SHAPES = [(300, 49, 32), (1000, 131, 65), (517, 585, 65), (129, 515, 512),
+             (256, 64, 64), (77, 16, 16), (1, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", K3_SHAPES,
+                         ids=[f"{m}x{k}x{n}" for m, k, n in K3_SHAPES])
+@pytest.mark.parametrize("relu", [True, False])
+def test_int8_gemm_matches_plain(cuda, m, k, n, relu):
+    """q bit-identical and f (float32 and bfloat16) within 1 ulp of the
+    plain version on the card, whose float64 product is exact."""
+    args = _gemm_operands(np.random.default_rng(m + k + n), m, k, n, cuda)
+    for emit in ((True, False), (False, True), (True, True)):
+        for f_dtype in (torch.float32, torch.bfloat16):
+            kw = dict(relu=relu, emit_q=emit[0], emit_f=emit[1],
+                      f_dtype=f_dtype)
+            before = k3.int8_gemm_requant.launches
+            q, f = k3.int8_gemm_requant(*args, **kw)
+            q_p, f_p = k3.int8_gemm_requant_reference(*args, **kw)
+            torch.cuda.synchronize()
+            assert k3.int8_gemm_requant.launches == before + 1
+            assert (q is None) == (not emit[0]) and (f is None) == (not emit[1])
+            if q is not None:
+                assert q.shape == (m, n) and q.stride(0) % 16 == 0
+                assert torch.equal(q, q_p)
+            if f is not None:
+                assert f.dtype == f_dtype and f.shape == (m, n)
+                step = torch.finfo(f_dtype).eps * f_p.float().abs().clamp_min(
+                    torch.finfo(f_dtype).tiny)
+                assert ((f.float() - f_p.float()).abs() <= step).all()
+
+
+@pytest.mark.cuda
+def test_int8_gemm_reads_strided_operands(cuda):
+    """x as a row-padded view (the layers' layout) and w as a (K, N) view
+    of an (N, K) tensor (no copy), against contiguous copies."""
+    x, w, sc, b, sy = _gemm_operands(np.random.default_rng(1), 200, 131, 65,
+                                     cuda)
+    xp = torch.zeros((200, 144), dtype=torch.int8, device=cuda)[:, :131]
+    xp.copy_(x)
+    wt = w.t().contiguous().t()
+    want = k3.int8_gemm_requant(x, w, sc, b, sy, emit_f=True)
+    got = k3.int8_gemm_requant(xp, wt, sc, b, sy, emit_f=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_quantize_divides_exactly_on_the_card(cuda):
+    """The consumer-side quantize: on the card as on the CPU, including the
+    values next to every .5 boundary (a multiply by the reciprocal would
+    move some of them across)."""
+    s = torch.tensor(0.0123, dtype=torch.float32)
+    steps = torch.arange(-127.5, 128.0, 1.0) * s
+    near = torch.cat([torch.nextafter(steps, steps - 1), steps,
+                      torch.nextafter(steps, steps + 1)])
+    x = torch.cat([near, torch.randn(100_000) * 2.0])
+    want = k3.quantize(x, s)
+    got = k3.quantize(x.to(cuda), s.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(layers.act_scale(x.abs().amax().to(cuda)).cpu(),
+                       layers.act_scale(x.abs().amax()))
+
+
+@pytest.mark.cuda
+def test_int8_net_card_matches_cpu(cuda):
+    """A calibrated int8 net, every convolution on K3, against the same
+    net on the CPU: heads and every int8 step equal."""
+    from chip_smoke import int8_net, int8_steps
+    from densereg_torch import NetConfig
+    from densereg_torch.models import init_variables
+    from densereg_torch.models.bridge import seeded_depth
+
+    cfg = NetConfig(num_stack=2, num_fea=32, num_joint=14, input_hw=(64, 64))
+    variables = init_variables(cfg, seed=1)
+    x = torch.from_numpy(seeded_depth(np.random.default_rng(2), 3, 64, 64))
+    cpu = int8_net(variables, cfg, "cpu", x)
+    card = int8_net(variables, cfg, cuda, x)
+    before = k3.int8_gemm_requant.launches
+    want, q_want = int8_steps(cpu, x)
+    got, q_got = int8_steps(card, x.to(cuda))
+    assert k3.int8_gemm_requant.launches > before
+    for key in want:
+        for g, w in zip(got[key], want[key]):
+            assert torch.equal(g, w), key
+    assert q_got.keys() == q_want.keys()
+    assert all(torch.equal(q_got[k], q) for k, q in q_want.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 8])
+def test_meanshift_matches_plain(cuda, n):
+    """Vote ties and all-zero weights, against the plain version on the
+    CPU (the card's exp rounds otherwise than the CPU's)."""
+    rng = np.random.default_rng(n)
+    cans = (rng.integers(-4, 5, (64, 16, n, 3)) * 0.22).astype(np.float32)
+    cans += rng.normal(0.0, 0.02, cans.shape).astype(np.float32)
+    weights = (rng.integers(0, 4, (64, 16, n)) * 0.25).astype(np.float32)
+    weights[0] = 0.0
+    cans, weights = torch.from_numpy(cans), torch.from_numpy(weights)
+    want = decode.weighted_mean_shift(cans, weights, 10, 0.4)
+    before = k2.weighted_mean_shift_cuda.launches
+    got = k2.weighted_mean_shift_cuda(cans.to(cuda), weights.to(cuda), 10,
+                                      0.4)
+    torch.cuda.synchronize()
+    assert k2.weighted_mean_shift_cuda.launches == before + 1
+    assert (got.cpu() - want).abs().max().item() <= 6e-6
+    with pytest.raises(ValueError, match="candidates"):
+        k2.weighted_mean_shift_cuda(torch.zeros((1, 1, 9, 3), device=cuda),
+                                    torch.zeros((1, 1, 9), device=cuda))
 
 
 @pytest.mark.cuda

@@ -27,10 +27,23 @@ def _imported_roots(path: pathlib.Path):
             yield str(node.args[0].value).split(".")[0]
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(PKG)))
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [PKG.parent / "chip_smoke.py"],
+                         ids=lambda p: (str(p.relative_to(PKG))
+                                        if PKG in p.parents else p.name))
 def test_no_module_imports_jax_or_the_jax_package(path):
     assert not set(_imported_roots(path)) & BANNED
+
+
+@pytest.mark.parametrize("name", ["ops/int8_gemm.py", "ops/meanshift.py",
+                                  "models/quantize.py", "models/layers.py",
+                                  "models/bridge.py", "serving.py"])
+def test_int8_and_meanshift_modules_are_checked(name):
+    """The int8 path's modules and K2's exist where the import check above
+    looks, each kernel wrapper beside its CUDA source."""
+    assert (PKG / name).is_file()
+    if name.startswith("ops/"):
+        assert (PKG / "csrc" / (pathlib.Path(name).stem + ".cu")).is_file()
 
 
 def test_imports_with_jax_blocked():

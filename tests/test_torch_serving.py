@@ -137,10 +137,13 @@ def test_buckets_and_unported_options(setup):
     with pytest.raises(ValueError, match="batch_buckets"):
         Predictor(variables, NetConfig(**SHAPE), ICVL, max_batch=4,
                   batch_buckets=(6,), device="cpu")
-    for kw in (dict(quantize=True), dict(calibration=(None, None)),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            Predictor(variables, NetConfig(**SHAPE), ICVL, device="cpu", **kw)
+    # int8 serving is ported (tests/test_torch_int8.py); mesh is not
+    with pytest.raises(NotImplementedError):
+        Predictor(variables, NetConfig(**SHAPE), ICVL, device="cpu",
+                  mesh=object())
+    # calibration without quantize is ignored, as in the JAX package
+    assert not Predictor(variables, NetConfig(**SHAPE), ICVL, device="cpu",
+                         calibration=(None, None)).net_cfg.quantize
     for ctor in (Predictor.from_checkpoint, Predictor.from_converted):
         with pytest.raises(NotImplementedError):
             ctor("unused", NetConfig(**SHAPE), ICVL)
