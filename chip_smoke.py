@@ -13,9 +13,9 @@ Phases, each printed as one JSON line:
 3. ``kernel``: each kernel against its plain PyTorch version on the card, on
    seeded adversarial inputs at the shapes the serving path gives it, with
    its time, the plain version's, a library yardstick's and its bound: the
-   fused decode (K1) at every head size, then the int8 GEMM (K3) at every
-   distinct call of the calibrated int8 net at batch 256, on that net's own
-   operands.
+   fused decode (K1) at every head size, then the int8 convolution (K3) at
+   every distinct call of the calibrated int8 net at batch 256, dense and
+   implicit-GEMM, on that net's own operands.
 4. ``model``: DenseRegNet s2/f128/J16 at 128x128 input (seeded random
    weights, ``init_variables``) on the card against the CPU, float32 with
    TF32 off; then the calibrated int8 net on the card (K3) against the
@@ -24,7 +24,8 @@ Phases, each printed as one JSON line:
 5. ``serving``: the main path. ``Predictor`` serves uint16 240x320 frames
    with boxes, 1,024 per request, in float32, bfloat16 and calibrated int8
    (bfloat16 views), then one dynamic int8 request and one lone frame; the
-   kernels' launch counts are zeroed just before and read just after. Then
+   kernels' launch counts (and the im2col builds on the card, which must
+   stay 0) are zeroed just before and read just after. Then
    its decode is held against the plain decode on the same heads, and the
    whole path against CPU predictors.
 6. ``kernel`` once more: the weighted mean shift (K2), which no serving
@@ -114,6 +115,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernel: str, warmup: int = 2, tries: int = 3):
+    """Mean device milliseconds of one launch of the CUDA kernel whose name
+    holds ``kernel`` (each call of ``fn`` launches it once), by
+    ``torch.profiler`` over ``iters`` calls: the kernel's own time, without
+    the host's launch gaps that ``cuda_ms`` counts when a call is shorter
+    than its Python wrapper. The profiler now and then loses a window's
+    kernel records: the mean is over the launches it recorded, a window
+    with none is taken again, and after ``tries`` such windows the result
+    is None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -237,34 +265,53 @@ def int8_net(variables, net_cfg: NetConfig, device, calib):
 
 
 def record_gemm_calls(net, x):
-    """Run ``net(x)`` once with the int8 GEMM spied on. Returns the distinct
-    calls, ``{(M, K, N, relu, emit_q, emit_f, f_dtype): (args, kwargs,
-    calls per forward)}``, each with the operands of its first call."""
-    real = layers.int8_gemm_requant
+    """Run ``net(x)`` once with both K3 entries spied on. Returns the
+    distinct calls, ``{(route, M, K, N, relu, emit_q, emit_f, f_dtype):
+    (args, kwargs, calls per forward)}``, each with the operands of its
+    first call; ``route`` is ``dense`` (``int8_gemm_requant``) or
+    ``implicit`` (``int8_conv_requant``), whose K is the im2col GEMM's,
+    k * k * C."""
+    real = layers.int8_gemm_requant, layers.int8_conv_requant
     calls = {}
 
-    def spy(x_q, w_q, scale, bias, s_y=None, **kw):
-        key = (x_q.shape[0], x_q.shape[1], w_q.shape[1], kw["relu"],
-               kw["emit_q"], kw["emit_f"], str(kw["f_dtype"]).split(".")[-1])
+    def record(route, m, k, n, args, kw):
+        key = (route, m, k, n, kw["relu"], kw["emit_q"], kw["emit_f"],
+               str(kw["f_dtype"]).split(".")[-1])
         if key not in calls:
-            calls[key] = [(x_q, w_q, scale, bias, s_y), kw, 0]
+            calls[key] = [args, kw, 0]
         calls[key][2] += 1
-        return real(x_q, w_q, scale, bias, s_y, **kw)
 
-    layers.int8_gemm_requant = spy
+    def dense(x_q, w_q, scale, bias, s_y=None, **kw):
+        record("dense", x_q.shape[0], x_q.shape[1], w_q.shape[1],
+               (x_q, w_q, scale, bias, s_y), kw)
+        return real[0](x_q, w_q, scale, bias, s_y, **kw)
+
+    def implicit(x_q, w, k, stride, scale, bias, s_y=None, **kw):
+        b, h, wd, c = x_q.shape
+        m = b * -(-h // stride) * -(-wd // stride)
+        record("implicit", m, k * k * c, w.shape[0],
+               (x_q, w, k, stride, scale, bias, s_y), kw)
+        return real[1](x_q, w, k, stride, scale, bias, s_y, **kw)
+
+    layers.int8_gemm_requant, layers.int8_conv_requant = dense, implicit
     try:
         with torch.inference_mode():
             net(x)
     finally:
-        layers.int8_gemm_requant = real
+        layers.int8_gemm_requant, layers.int8_conv_requant = real
     return calls
 
 
-def gemm_bound(m, k, n, emit_q, emit_f, f_bytes):
-    """Least time of one call (ms) and what sets it: x, w, scale and bias
-    read once, q and f written once; 2MKN int8 operations."""
-    nbytes = m * k + k * n + 8 * n + m * n * (int(emit_q)
-                                              + f_bytes * int(emit_f))
+def gemm_bound(m, k, n, emit_q, emit_f, f_bytes, x_bytes=None):
+    """Least time of one call (ms), as (bytes time, operations time): x
+    (``x_bytes``, default the (M, K) matrix), w, scale and bias read once,
+    q and f written once; 2MKN int8 operations. With the default x it is
+    the im2col-bytes bound of a k x k convolution (``bound_ms``, the bound
+    of an im2col GEMM); with ``x_bytes`` the activation's b*h*w*C bytes,
+    the convolution's own (``conv_bound_ms``)."""
+    x_bytes = m * k if x_bytes is None else x_bytes
+    nbytes = x_bytes + k * n + 8 * n + m * n * (int(emit_q)
+                                                + f_bytes * int(emit_f))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * m * k * n / INT8_OPS_PER_S * 1e3
     return t_bytes, t_ops
@@ -292,6 +339,21 @@ def int_mm_call(x_q, w_q, scale, bias, s_y, relu, emit_q, emit_f, f_dtype):
     return call
 
 
+def scramble_pitch(x_q: torch.Tensor, rng) -> int:
+    """Overwrite the pitch bytes of an NHWC int8 view (those between C and
+    the pixel pitch, which no producer writes) with random int8; returns
+    how many there were."""
+    c, pitch = x_q.shape[-1], x_q.stride(-2)
+    if pitch == c:
+        return 0
+    with torch.inference_mode():      # the net's operands are inference tensors
+        full = x_q.as_strided(x_q.shape[:-1] + (pitch,), x_q.stride())
+        pad = full[..., c:]
+        pad.copy_(torch.from_numpy(rng.integers(
+            -128, 128, tuple(pad.shape)).astype(np.int8)).to(x_q.device))
+    return pad.numel()
+
+
 def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance in units in the last place between two float32 or
     bfloat16 tensors of one sign pattern (0 and -0 are 0 apart)."""
@@ -308,19 +370,48 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
 def phase_kernel_int8(variables, net_cfg: NetConfig, device, b: int = 256,
                       iters: int = 20):
     """K3 at every distinct call of the calibrated int8 net (bfloat16
-    views, as served) at batch ``b``, on that net's operands, against its
+    views, as served) at batch ``b``, on that net's operands (the pitch
+    bytes of each implicit call's activation scrambled first), against its
     plain version on the card: ``q`` bit-identical and ``f`` within 1 ulp.
-    Returns the rows and the per-forward totals."""
+    ``ms`` times back-to-back wrapper calls by CUDA events (at the small
+    maps that is the wrapper's host time), ``device_ms`` the kernel alone
+    by the profiler. Each line has both bounds: ``bound_ms`` counts the
+    im2col matrix as x (an im2col GEMM's bound), ``conv_bound_ms`` each
+    activation byte once. An implicit call adds ``im2col_ms``, the time of
+    the im2col that its plain version and the library yardstick
+    (``library_ms``, which excludes it) start from. Returns the rows and
+    the per-forward totals."""
     cfg = NetConfig(**{**net_cfg.__dict__, "compute_dtype": "bfloat16"})
-    dms = torch.from_numpy(seeded_depth(np.random.default_rng(SEED + 3), b,
-                                        *cfg.input_hw))
+    rng = np.random.default_rng(SEED + 3)
+    dms = torch.from_numpy(seeded_depth(rng, b, *cfg.input_hw))
     net = int8_net(variables, cfg, device, dms[:64])
     calls = record_gemm_calls(net, dms.to(device))
     rows = []
-    for (m, k, n, relu, emit_q, emit_f, fdt), (args, kw, count) in sorted(
-            calls.items(), key=lambda kv: -kv[0][0] * kv[0][1] * kv[0][2]):
-        q, f = k3.int8_gemm_requant(*args, **kw)
-        q_p, f_p = k3.int8_gemm_requant_reference(*args, **kw)
+    for (route, m, k, n, relu, emit_q, emit_f, fdt), (args, kw, count) in \
+            sorted(calls.items(), key=lambda kv: -kv[0][1] * kv[0][2]
+                   * kv[0][3]):
+        shape = {"M": m, "K": k, "N": n, "relu": relu, "emit_q": emit_q,
+                 "emit_f": emit_f, "f_dtype": fdt}
+        if route == "implicit":
+            x_q, w, win, stride = args[:4]
+            bb, h, wd, c = x_q.shape
+            shape.update(k=win, stride=stride, h=h, w=wd, C=c)
+            pitch_bytes = scramble_pitch(x_q, rng)
+            run = lambda: k3.int8_conv_requant(*args, **kw)
+            plain = lambda: k3.int8_conv_requant_reference(*args, **kw)
+            im2col = lambda: k3.im2col_nhwc(x_q, win, stride)
+            cols, _ = im2col()
+            library = int_mm_call(cols, k3.unpack_weight(w, win, c),
+                                  *args[4:], **kw)
+            x_bytes = bb * h * wd * c
+        else:
+            pitch_bytes, im2col = 0, None
+            run = lambda: k3.int8_gemm_requant(*args, **kw)
+            plain = lambda: k3.int8_gemm_requant_reference(*args, **kw)
+            library = int_mm_call(*args, **kw)
+            x_bytes = None
+        q, f = run()
+        q_p, f_p = plain()
         torch.cuda.synchronize()
         q_bad = 0 if q is None else int((q != q_p).sum().item())
         f_ulps = 0 if f is None else ulps(f, f_p)
@@ -328,31 +419,45 @@ def phase_kernel_int8(variables, net_cfg: NetConfig, device, b: int = 256,
             ).item()
         f_bytes = 0 if f is None else f.element_size()
         t_bytes, t_ops = gemm_bound(m, k, n, emit_q, emit_f, f_bytes)
+        c_bytes, _ = gemm_bound(m, k, n, emit_q, emit_f, f_bytes, x_bytes)
         row = {"phase": "kernel", "name": "int8_gemm_requant",
-               "shape": {"M": m, "K": k, "N": n, "relu": relu,
-                         "emit_q": emit_q, "emit_f": emit_f, "f_dtype": fdt},
-               "calls_per_forward": count, "q_mismatches": q_bad,
+               "route": route, "shape": shape, "calls_per_forward": count,
+               "pitch_bytes_scrambled": pitch_bytes, "q_mismatches": q_bad,
                "f_max_ulps": f_ulps, "max_abs_err": f_err,
-               "ms": cuda_ms(lambda: k3.int8_gemm_requant(*args, **kw),
-                             iters),
-               "plain_ms": cuda_ms(
-                   lambda: k3.int8_gemm_requant_reference(*args, **kw), 3),
-               "library_ms": cuda_ms(int_mm_call(*args, **kw), iters),
+               "ms": cuda_ms(run, iters),
+               "device_ms": device_ms(run, iters, "k3_kernel"),
+               "plain_ms": cuda_ms(plain, 3),
+               "library_ms": cuda_ms(library, iters),
+               "im2col_ms": cuda_ms(im2col, iters) if im2col else 0.0,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes_ms": t_bytes, "ops_ms": t_ops}
+               "bytes_ms": t_bytes, "ops_ms": t_ops,
+               "conv_bound_ms": max(c_bytes, t_ops),
+               "conv_bound_by": ("bytes" if c_bytes >= t_ops
+                                 else "operations"),
+               "conv_bytes_ms": c_bytes}
         emit(row)
-        check(q_bad == 0, f"int8_gemm {m, k, n}: {q_bad} int8 outputs "
-                          f"differ from the plain version")
-        check(f_ulps <= 1, f"int8_gemm {m, k, n}: f {f_ulps} ulps off")
+        check(q_bad == 0, f"int8 K3 {route} {m, k, n}: {q_bad} int8 "
+                          f"outputs differ from the plain version")
+        check(f_ulps <= 1, f"int8 K3 {route} {m, k, n}: f {f_ulps} ulps off")
         rows.append(row)
     # one forward: each distinct call times the number of such calls
-    total = {key: sum(r[key] * r["calls_per_forward"] for r in rows)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                         "bytes_ms", "ops_ms")}
+    total = {key: sum(r[key] * r["calls_per_forward"] for r in rows
+                      if r[key] is not None)
+             for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                         "im2col_ms",
+                         "bound_ms", "bytes_ms", "ops_ms", "conv_bound_ms",
+                         "conv_bytes_ms")}
     total["bound_by"] = ("bytes" if total["bytes_ms"] >= total["ops_ms"]
                          else "operations")
+    total["conv_bound_by"] = ("bytes" if total["conv_bytes_ms"]
+                              >= total["ops_ms"] else "operations")
     total["calls_per_forward"] = sum(r["calls_per_forward"] for r in rows)
+    total["calls_without_device_ms"] = sum(
+        r["calls_per_forward"] for r in rows if r["device_ms"] is None)
+    total["calls_by_route"] = {
+        route: sum(r["calls_per_forward"] for r in rows
+                   if r["route"] == route) for route in ("dense", "implicit")}
     total["ops_per_forward"] = sum(2 * r["shape"]["M"] * r["shape"]["K"]
                                    * r["shape"]["N"] * r["calls_per_forward"]
                                    for r in rows)
@@ -542,6 +647,7 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
     fd.fused_decode.launches = 0
     k3.int8_gemm_requant.launches = 0
     k2.weighted_mean_shift_cuda.launches = 0
+    k3.im2col_nhwc.cuda_calls = 0
     secs, xyz = {}, {}
     for name in ("float32", "bfloat16", "int8"):
         secs[name] = []
@@ -556,6 +662,7 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
     launches = {"fused_decode": fd.fused_decode.launches,
                 "int8_gemm_requant": k3.int8_gemm_requant.launches,
                 "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches}
+    im2col_on_card = k3.im2col_nhwc.cuda_calls
     per_request = -(-n_frames // max_batch)
     int8_dispatches = (reps + 1) * per_request
     dispatches = 2 * reps * per_request + int8_dispatches + 1
@@ -571,7 +678,8 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
           "frames_per_s": {d: n_frames / statistics.median(s)
                            for d, s in secs.items()},
           "request_s": secs, "dispatches": dispatches,
-          "int8_dispatches": int8_dispatches, "launches": launches})
+          "int8_dispatches": int8_dispatches, "launches": launches,
+          "im2col_nhwc_cuda_calls": im2col_on_card})
     j3 = 3 * net_cfg.num_joint
     for name, out in xyz.items():
         check(out.shape == (n_frames, j3) and bool(np.isfinite(out).all()),
@@ -584,6 +692,9 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
               f"int8_gemm_requant launched {launches['int8_gemm_requant']} "
               f"times, not {convs} convolutions x {int8_dispatches} "
               f"dispatches")
+        check(im2col_on_card == 0,
+              f"{im2col_on_card} int8 convolutions built an im2col on the "
+              f"card instead of running K3's implicit GEMM")
     else:
         check(not any(launches.values()), "a kernel launched on the CPU")
 
@@ -721,15 +832,20 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"]}, {
-        # one forward of the int8 net at batch 256: every call, summed
+        # one forward of the int8 net at batch 256: every call, summed. The
+        # function is the convolution: its bound reads each activation
+        # once, and the library yardstick builds the im2col it starts from
         "name": "int8_gemm_requant", "route": "cuda",
         "source": "densereg_torch/csrc/int8_gemm.cu",
         "replaces": "densereg_tpu/ops/int8_gemm.py:35",
         "launches": launches["int8_gemm_requant"],
         "max_abs_err": k3_total["max_abs_err"],
-        "ms": k3_total["ms"], "plain_ms": k3_total["plain_ms"],
-        "bound_ms": k3_total["bound_ms"], "bound_by": k3_total["bound_by"],
-        "library_ms": k3_total["library_ms"]}, {
+        "ms": k3_total["ms"], "device_ms": k3_total["device_ms"],
+        "plain_ms": k3_total["plain_ms"],
+        "bound_ms": k3_total["conv_bound_ms"],
+        "bound_by": k3_total["conv_bound_by"],
+        "im2col_bound_ms": k3_total["bound_ms"],
+        "library_ms": k3_total["library_ms"] + k3_total["im2col_ms"]}, {
         "name": "weighted_mean_shift", "route": "cuda",
         "source": "densereg_torch/csrc/meanshift.cu",
         "replaces": "densereg_tpu/ops/meanshift_pallas.py:33",

@@ -13,8 +13,9 @@ it is applied explicitly, never through symmetric ``padding=``.
 
 The int8 form (``quantized=True``, weights from
 ``models.quantize.quantize_weights``) runs channels-last: every convolution
-is one call of the int8 GEMM kernel (``ops.int8_gemm``), over the
-activation itself for a 1x1 convolution and over an int8 im2col otherwise.
+is one launch of the int8 kernel K3 (``ops.int8_gemm``), its dense entry
+over the activation itself for a 1x1 stride-1 convolution and its
+implicit-GEMM entry, which reads the activation in place, otherwise.
 Activations are quantized per tensor: with the scale of an incoming
 :class:`QTensor`, else with the calibrated ``amax``, else with the batch's
 own ``max|x|`` (dynamic). A calibrated layer also quantizes its own output
@@ -29,18 +30,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from densereg_torch.ops.int8_gemm import int8_gemm_requant, quantize
+from densereg_torch.ops.int8_gemm import (
+    int8_conv_requant,
+    int8_gemm_requant,
+    pack_weight,
+    quantize,
+    same_pads,
+)
 
 # what a calibrated int8 layer's consumers read of its output: the int8
 # side (convolutions), the float side (sums, concatenations, heads) or both
 OUT_USES = ("q", "f", "both")
-
-
-def same_pads(size: int, window: int, stride: int):
-    """(before, after) padding of XLA's SAME for one spatial axis."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + window - size, 0)
-    return total // 2, total - total // 2
 
 
 class QTensor:
@@ -90,38 +90,16 @@ def _record_amax(mod: nn.Module, name: str, x: torch.Tensor) -> torch.Tensor:
 
 def quantize_output(mod: nn.Module, y: torch.Tensor, dtype: torch.dtype):
     """Producer-side quantization of a calibrated graph: a :class:`QTensor`
-    of ``y`` with the module's ``out_amax`` (recorded while calibrating);
-    an uncalibrated module returns ``y`` in ``dtype``."""
+    of ``y`` with the module's ``out_amax`` (recorded while calibrating),
+    its int8 pixels 16 bytes apart as K3 reads them; an uncalibrated module
+    returns ``y`` in ``dtype``."""
     if not (mod.calibrating or mod.out_amax is not None):
         return y.to(dtype)
     if mod.calibrating:
         s = act_scale(_record_amax(mod, "out_amax", y))
     else:
         s = act_scale(mod.out_amax)
-    return QTensor(y.to(dtype), quantize(y, s), s)
-
-
-def im2col_nhwc(x: torch.Tensor, k: int, stride: int):
-    """NHWC int8 ``x`` -> the ``(b * oh * ow, k * k * C)`` matrix of a
-    k x k SAME convolution, K in (kh, kw, C) order (an HWIO kernel's), and
-    ``(b, oh, ow)``. Built from k^2 strided slices of the zero-padded
-    tensor: int8 0 is float 0, so the padding is exact. Rows start every
-    16 bytes. A 1x1 stride-1 convolution reads ``x`` itself."""
-    b, h, w, c = x.shape
-    oh, ow = -(-h // stride), -(-w // stride)
-    if k == 1 and stride == 1:
-        return x.reshape(b * h * w, c), (b, h, w)
-    ph, pw = same_pads(h, k, stride), same_pads(w, k, stride)
-    xp = x.new_zeros((b, h + sum(ph), w + sum(pw), c))
-    xp[:, ph[0]:ph[0] + h, pw[0]:pw[0] + w] = x
-    kk = k * k * c
-    cols = x.new_empty((b, oh, ow, -(-kk // 16) * 16))
-    for i in range(k):
-        for j in range(k):
-            o = (i * k + j) * c
-            cols[..., o:o + c] = xp[:, i:i + (oh - 1) * stride + 1:stride,
-                                    j:j + (ow - 1) * stride + 1:stride]
-    return cols.reshape(b * oh * ow, -1)[:, :kk], (b, oh, ow)
+    return QTensor(y.to(dtype), quantize(y, s, pitch16=True), s)
 
 
 class BatchRenorm(nn.Module):
@@ -206,7 +184,7 @@ class ConvBR(nn.Module):
         self.register_buffer("bias", torch.zeros(out_ch))
         self.register_buffer("amax", None)
         self.register_buffer("out_amax", None)
-        self._w = None          # (K, N) K-contiguous view of kernel_q
+        self._w = None          # kernel_q packed for K3 (pack_weight)
         self._w_key = None
 
     def forward(self, x):
@@ -217,18 +195,28 @@ class ConvBR(nn.Module):
             x = self.bn(x)
         return F.relu(x) if self.relu else x
 
-    def _gemm_weight(self) -> torch.Tensor:
-        """``kernel_q`` as the GEMM's (K, N) operand, K in im2col order: a
-        view of an (N, K) tensor whose rows start every 16 bytes, made
-        again whenever ``kernel_q`` moves or changes."""
+    def _packed_weight(self) -> torch.Tensor:
+        """``kernel_q`` as K3's ``(N, k * k * Cp)`` operand
+        (``ops.int8_gemm.pack_weight``), made again whenever ``kernel_q``
+        moves or changes."""
         key = (self.kernel_q.data_ptr(), self.kernel_q._version)
         if self._w_key != key:
-            kh, kw, ci, n = self.kernel_q.shape
-            k = kh * kw * ci
-            w = self.kernel_q.new_zeros((n, -(-k // 16) * 16))
-            w[:, :k] = self.kernel_q.reshape(k, n).t()
-            self._w, self._w_key = w[:, :k].t(), key
+            self._w, self._w_key = pack_weight(self.kernel_q), key
         return self._w
+
+    def _conv(self, x_q, scale, **kw):
+        """One K3 launch: the dense entry for a 1x1 stride-1 convolution,
+        the implicit GEMM otherwise. Returns ``(q, f)``, NHWC."""
+        k = self.kernel_q.shape[0]
+        w = self._packed_weight()
+        if k > 1 or self.stride > 1:
+            return int8_conv_requant(x_q, w, k, self.stride, scale,
+                                     self.bias, relu=self.relu, **kw)
+        b, h, wd, c = x_q.shape
+        out = int8_gemm_requant(x_q.reshape(b * h * wd, c), w[:, :c].t(),
+                                scale, self.bias, relu=self.relu, **kw)
+        return tuple(None if t is None else t.reshape(b, h, wd, -1)
+                     for t in out)
 
     def _quantized_forward(self, x):
         if isinstance(x, QTensor):
@@ -241,23 +229,16 @@ class ConvBR(nn.Module):
             else:
                 s_x = act_scale(x.float().abs().amax())
             x_q = quantize(x, s_x, pitch16=True)
-        cols, (b, oh, ow) = im2col_nhwc(x_q, self.kernel_q.shape[0],
-                                        self.stride)
-        gemm = lambda **kw: int8_gemm_requant(
-            cols, self._gemm_weight(), s_x * self.scale, self.bias,
-            relu=self.relu, **kw)
-        shape = (b, oh, ow, -1)
+        conv = lambda **kw: self._conv(x_q, s_x * self.scale, **kw)
         if self.calibrating:
-            _, y = gemm(emit_q=False, emit_f=True, f_dtype=torch.float32)
-            return quantize_output(self, y.reshape(shape), self.dtype)
+            _, y = conv(emit_q=False, emit_f=True, f_dtype=torch.float32)
+            return quantize_output(self, y, self.dtype)
         if self.out_amax is None:       # dynamic: the consumer quantizes
-            _, f = gemm(emit_q=False, emit_f=True, f_dtype=self.dtype)
-            return f.reshape(shape)
+            return conv(emit_q=False, emit_f=True, f_dtype=self.dtype)[1]
         s_y = act_scale(self.out_amax)
-        q, f = gemm(s_y=s_y, emit_q=self.out_use != "f",
+        q, f = conv(s_y=s_y, emit_q=self.out_use != "f",
                     emit_f=self.out_use != "q", f_dtype=self.dtype)
-        return QTensor(None if f is None else f.reshape(shape),
-                       None if q is None else q.reshape(shape), s_y)
+        return QTensor(f, q, s_y)
 
 
 class Residual(nn.Module):

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface; it is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``densereg_torch/_build/`` (git-ignored) on first use and loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and never served stale.
+``ctypes``. The library's file name carries a hash of the source, of every
+header it includes from ``csrc/`` (``#include "..."``, followed through
+headers) and of the flags, so an edited source or header is rebuilt and
+never served stale.
 
 ``--fmad=false`` keeps multiplies and adds apart, as the plain versions
 compute them; ``--use_fast_math`` is deliberately absent.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,9 +50,30 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(path: Path) -> Iterable[Path]:
+    """The headers that ``path`` includes with quotes, found beside it,
+    and theirs in turn, each once, in the order first met."""
+    seen: Dict[Path, None] = {}
+    todo = [path]
+    while todo:
+        cur = todo.pop()
+        for inc in _INCLUDE.findall(cur.read_bytes()):
+            dep = (cur.parent / inc.decode()).resolve()
+            if dep.is_file() and dep not in seen:
+                seen[dep] = None
+                todo.append(dep)
+    return list(seen)
+
+
 def library_path(name: str) -> Path:
     src = sources()[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for dep in local_headers(src):
+        digest.update(dep.name.encode() + b"\0" + dep.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -12,8 +12,9 @@ evaluated on the CPU (``chip_smoke.plain_on_cpu`` says why not on the
 card); the kernels repeat the plain arithmetic operation by operation and
 what is left is ``expf`` against the CPU's ``exp``. The int8 GEMM (K3):
 ``q`` bit-identical and ``f`` within 1 ulp of its plain version on the
-card, whose float64 product is exact; an int8 net on K3 equal to the same
-net on the CPU.
+card, whose float64 product is exact; the same for its implicit-GEMM
+convolution entry against im2col and the plain GEMM; an int8 net on K3
+equal to the same net on the CPU.
 """
 
 import pytest
@@ -116,6 +117,127 @@ def test_int8_gemm_reads_strided_operands(cuda):
     want = k3.int8_gemm_requant(x, w, sc, b, sy, emit_f=True)
     got = k3.int8_gemm_requant(xp, wt, sc, b, sy, emit_f=True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _pitched(rng, shape, c, device):
+    """Random int8 ``shape + (c,)`` as a view of a tensor whose last axis is
+    padded to 16 bytes, with random int8 (-128 included) in the padding, as
+    an activation's never-written pitch bytes may hold."""
+    full = rng.integers(-128, 128, shape + (-(-c // 16) * 16,)).astype(np.int8)
+    full[..., :c] = rng.integers(-127, 128, shape + (c,))
+    return torch.from_numpy(full).to(device)[..., :c]
+
+
+def _assert_matches_plain(got, want):
+    q, f = got
+    q_p, f_p = want
+    assert (q is None) == (q_p is None) and (f is None) == (f_p is None)
+    if q is not None:
+        assert q.shape == q_p.shape and torch.equal(q, q_p)
+    if f is not None:
+        assert f.dtype == f_p.dtype and f.shape == f_p.shape
+        step = torch.finfo(f.dtype).eps * f_p.float().abs().clamp_min(
+            torch.finfo(f.dtype).tiny)
+        assert ((f.float() - f_p.float()).abs() <= step).all()
+
+
+@pytest.mark.cuda
+def test_int8_gemm_ignores_pitch_bytes(cuda):
+    """The dense entry reads whole 16-byte chunks of x and w: whatever the
+    bytes past K hold, x's (never written) and w's (cut at K by the
+    kernel), the result is that of clean contiguous operands."""
+    rng = np.random.default_rng(7)
+    x, w, sc, b, sy = _gemm_operands(rng, 333, 131, 65, cuda)
+    xp = _pitched(rng, (333,), 131, cuda)
+    xp.copy_(x)
+    wp = _pitched(rng, (65,), 131, cuda)
+    wp.copy_(w.t())
+    kw = dict(emit_q=True, emit_f=True, f_dtype=torch.float32)
+    got = k3.int8_gemm_requant(xp, wp.t(), sc, b, sy, **kw)
+    want = k3.int8_gemm_requant(x.contiguous(), w.contiguous(), sc, b, sy,
+                                **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _assert_matches_plain(got, k3.int8_gemm_requant_reference(
+        x, w, sc, b, sy, **kw))
+
+
+# (k, stride, C, N, h = w): every k x k convolution of the s2/f128 int8 net
+# (the 7x7/2 stem over C = 1, the residuals' 3x3 at each width and map
+# size down to the hourglass's 2x2), and a 3x3/2 on an odd map
+CONV_SHAPES = [(7, 2, 1, 32, 128), (3, 1, 16, 16, 64), (3, 1, 32, 32, 32),
+               (3, 1, 64, 64, 32), (3, 1, 64, 64, 16), (3, 1, 64, 64, 8),
+               (3, 1, 64, 64, 4), (3, 1, 64, 64, 2), (3, 1, 65, 65, 32),
+               (3, 1, 80, 80, 32), (3, 1, 128, 128, 32),
+               (3, 1, 256, 256, 32), (3, 2, 80, 80, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride,c,n,hw", CONV_SHAPES,
+                         ids=[f"{k}x{k}s{s}-c{c}-n{n}-{hw}"
+                              for k, s, c, n, hw in CONV_SHAPES])
+def test_int8_conv_matches_plain(cuda, k, stride, c, n, hw):
+    """The implicit-GEMM entry against im2col and the plain GEMM on the
+    card, at batch 2, with random bytes in every pixel's pitch and the
+    image edges zero-padded by the loader: q bit-identical, f within 1
+    ulp, and no im2col on the card."""
+    rng = np.random.default_rng(k * c + hw)
+    x = _pitched(rng, (2, hw, hw), c, cuda)
+    kern = torch.from_numpy(rng.integers(-127, 128, (k, k, c, n)).astype(
+        np.int8)).to(cuda)
+    w = k3.pack_weight(kern)
+    kk = k * k * c
+    sc = torch.from_numpy((rng.uniform(0.5, 1.5, n) / (5400.0 * kk ** 0.5))
+                          .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(cuda)
+    sy = torch.tensor(0.02, device=cuda)
+    for relu in (True, False):
+        for emit in ((True, False), (False, True), (True, True)):
+            for f_dtype in (torch.float32, torch.bfloat16):
+                kw = dict(relu=relu, emit_q=emit[0], emit_f=emit[1],
+                          f_dtype=f_dtype)
+                before = (k3.int8_gemm_requant.launches,
+                          k3.im2col_nhwc.cuda_calls)
+                got = k3.int8_conv_requant(x, w, k, stride, sc, b, sy, **kw)
+                after = (k3.int8_gemm_requant.launches,
+                         k3.im2col_nhwc.cuda_calls)
+                want = k3.int8_conv_requant_reference(x, w, k, stride, sc, b,
+                                                      sy, **kw)
+                torch.cuda.synchronize()
+                assert after == (before[0] + 1, before[1])
+                oh = -(-hw // stride)
+                for t in got:
+                    assert t is None or t.shape == (2, oh, oh, n)
+                if got[0] is not None:
+                    assert got[0].stride(2) % 16 == 0
+                _assert_matches_plain(got, want)
+    assert len(torch.unique(got[0])) > 20        # the steps are exercised
+
+
+@pytest.mark.cuda
+def test_int8_conv_refuses_what_it_cannot_take(cuda, monkeypatch):
+    """A pixel pitch that is not a multiple of 16 raises (no quiet copy),
+    and so does a launch the card refuses for its shared memory."""
+    rng = np.random.default_rng(3)
+    kern = torch.zeros((3, 3, 65, 8), dtype=torch.int8, device=cuda)
+    w = k3.pack_weight(kern)
+    sc = torch.ones(8, device=cuda)
+    b = torch.zeros(8, device=cuda)
+    dense = torch.from_numpy(rng.integers(-127, 128, (1, 5, 5, 65)).astype(
+        np.int8)).to(cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        k3.int8_conv_requant(dense, w, 3, 1, sc, b, 1.0)
+    x = _pitched(rng, (1, 5, 5), 65, cuda)
+    monkeypatch.setattr(k3, "STAGES", 16)       # 16 x 36 KB: over 227 KB
+    before = k3.int8_gemm_requant.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k3.int8_conv_requant(x, w, 3, 1, sc, b, 1.0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k3.int8_gemm_requant(x.reshape(25, 65), w[:, :65].t(), sc, b, 1.0)
+    assert k3.int8_gemm_requant.launches == before
+    monkeypatch.undo()
+    k3.int8_conv_requant(x, w, 3, 1, sc, b, 1.0)
+    torch.cuda.synchronize()
+    assert k3.int8_gemm_requant.launches == before + 1
 
 
 @pytest.mark.cuda

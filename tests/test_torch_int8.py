@@ -49,11 +49,15 @@ from densereg_torch.models import (  # noqa: E402
     quantized_net_config,
 )
 from densereg_torch.models.bridge import seeded_depth  # noqa: E402
-from densereg_torch.models.layers import im2col_nhwc  # noqa: E402
 from densereg_torch.ops.int8_gemm import (  # noqa: E402
+    im2col_nhwc,
+    int8_conv_requant,
+    int8_conv_requant_reference,
     int8_gemm_requant,
     int8_gemm_requant_reference,
+    pack_weight,
     quantize,
+    unpack_weight,
 )
 from test_torch_serving import ICVL, _hand_frames  # noqa: E402
 
@@ -155,6 +159,94 @@ def test_im2col_conv_matches_integer_conv(k, stride, hw):
         preferred_element_type=jnp.int32)
     np.testing.assert_array_equal(got.reshape(b, oh, ow, 6).numpy(),
                                   np.asarray(want))
+
+
+def _pitched_nhwc(rng, b, hw, c):
+    """Random int8 NHWC as a view of a tensor whose pixels are 16-byte
+    aligned, with random int8 in the (never-written) pitch bytes."""
+    full = rng.integers(-128, 128, (b, hw, hw, -(-c // 16) * 16)).astype(
+        np.int8)
+    full[..., :c] = rng.integers(-127, 128, (b, hw, hw, c))
+    return torch.from_numpy(full)[..., :c], full
+
+
+# (k, stride, C, hw): the 7x7/2 stem over C = 1, 3x3 at aligned and ragged
+# widths (65 -> Cp 80), and a 3x3/2 on an odd map
+CONV_CASES = [(7, 2, 1, 16), (3, 1, 64, 9), (3, 1, 65, 8), (3, 2, 80, 9)]
+
+
+@pytest.mark.parametrize("k,stride,c,hw", CONV_CASES,
+                         ids=[f"{k}x{k}s{s}-c{c}-{hw}"
+                              for k, s, c, hw in CONV_CASES])
+def test_k3_conv_plain_matches_jax(k, stride, c, hw):
+    """The implicit-GEMM entry's plain version against XLA's int8 SAME
+    convolution (int32 sums) and the epilogue of ``reference_gemm_requant``
+    (its operations, each rounded once, run op by op): q bit-identical, f
+    equal, in both f dtypes and with and without ReLU."""
+    rng = np.random.default_rng(k * c + hw)
+    x, _ = _pitched_nhwc(rng, 2, hw, c)
+    n = 24
+    kern = rng.integers(-127, 128, (k, k, c, n)).astype(np.int8)
+    kk = k * k * c
+    sc = (rng.uniform(0.5, 1.5, n) / (5400.0 * kk ** 0.5)).astype(np.float32)
+    b = rng.uniform(-1, 1, n).astype(np.float32)
+    sy = np.float32(0.02)
+    acc = jax.lax.conv_general_dilated(
+        jnp.asarray(x.numpy()), jnp.asarray(kern), (stride, stride), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.int32)
+    w = pack_weight(torch.from_numpy(kern))
+    for relu in (True, False):
+        with jax.disable_jit():
+            y = acc.astype(jnp.float32) * sc + b
+            if relu:
+                y = jnp.maximum(y, 0.0)
+            q_ref = np.asarray(jnp.clip(jnp.round(y / sy), -127, 127)
+                               .astype(jnp.int8))
+        for f_dtype in (torch.float32, torch.bfloat16):
+            q, f = int8_conv_requant(
+                x, w, k, stride, torch.from_numpy(sc), torch.from_numpy(b),
+                torch.tensor(sy), relu=relu, emit_q=True, emit_f=True,
+                f_dtype=f_dtype)
+            assert q.shape == f.shape == acc.shape
+            np.testing.assert_array_equal(q.numpy(), q_ref)
+            want = np.asarray(y) if f_dtype == torch.float32 else np.asarray(
+                jnp.asarray(y).astype(jnp.bfloat16), np.float32)
+            np.testing.assert_array_equal(f.float().numpy(), want)
+    assert len(np.unique(q_ref)) > 20          # the steps are exercised
+
+
+@pytest.mark.parametrize("k,stride,c,hw", CONV_CASES,
+                         ids=[f"{k}x{k}s{s}-c{c}-{hw}"
+                              for k, s, c, hw in CONV_CASES])
+def test_packed_weight_ignores_pitch_bytes(k, stride, c, hw):
+    """What the kernel computes: the pitch bytes read along with every
+    pixel meet the packed weights' zeros, so the int32 sums over the whole
+    16-byte chunks equal ``im2col_nhwc`` @ HWIO over the C channels."""
+    rng = np.random.default_rng(c + hw)
+    x, full = _pitched_nhwc(rng, 2, hw, c)
+    n = 7
+    kern = torch.from_numpy(rng.integers(-127, 128, (k, k, c, n)).astype(
+        np.int8))
+    w = pack_weight(kern)
+    assert w.shape == (n, k * k * -(-c // 16) * 16)
+    assert torch.equal(unpack_weight(w, k, c), kern.reshape(-1, n))
+    cols, shape = im2col_nhwc(x, k, stride)
+    want = cols.long() @ kern.reshape(-1, n).long()
+    cols_full, _ = im2col_nhwc(torch.from_numpy(full), k, stride)
+    got = cols_full.long() @ w.t().long()
+    assert (full[..., c:] != 0).any() or c % 16 == 0
+    assert torch.equal(got, want)
+    q, _ = int8_conv_requant_reference(
+        x, w, k, stride, torch.ones(n), torch.zeros(n), 1e9, relu=False)
+    assert q.shape == shape + (n,)
+
+
+def test_conv_entry_refuses_a_foreign_weight():
+    x = torch.zeros((1, 4, 4, 20), dtype=torch.int8)
+    with pytest.raises(ValueError, match="pack_weight"):
+        int8_conv_requant(x, torch.zeros((8, 9 * 20), dtype=torch.int8), 3,
+                          1, torch.ones(8), torch.zeros(8), 1.0)
 
 
 @pytest.fixture(scope="module")

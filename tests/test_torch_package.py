@@ -74,3 +74,23 @@ def test_entry_points_default_to_cuda():
 
     for fn in (Predictor.__init__, make_infer_fn):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
+    """An edited header under ``csrc/`` (included directly or through
+    another header) renames the library, so it is rebuilt, never stale."""
+    from densereg_torch.ops import _build
+
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "k.cu").write_text(
+        '#include <cuda_runtime.h>\n#include "a.cuh"\n')
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.local_headers(tmp_path / "k.cu")] == [
+        "a.cuh", "b.cuh"]
+    first = _build.library_path("k")
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert _build.library_path("k") != first
+    monkeypatch.undo()
+    assert set(_build.sources()) >= {"fused_decode", "int8_gemm", "meanshift"}
+    assert all(_build.library_path(n).suffix == ".so" for n in _build.sources())

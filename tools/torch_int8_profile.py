@@ -8,10 +8,11 @@ random weights, bfloat16 float views, as ``chip_smoke.py`` serves it),
 runs ``--iters`` forwards at ``--batch`` under ``torch.profiler`` and
 prints JSON lines: the device time of each kernel name summed over the
 forwards (per forward, top 20), the same by the operator that launched
-it (the int8 GEMM is a ctypes call and has none), the int8 GEMM kernel's
-share, the forward's time by CUDA events and the device's busy share of
-it. The same for the bfloat16 float net, for comparison. Needs an NVIDIA
-GPU.
+it (K3, the int8 convolution kernel, is a ctypes call and has none; a
+``copy_`` is split by the outermost operator that called it, e.g.
+``aten::copy_ <- aten::to`` for a cast), K3's share, the forward's time by
+CUDA events and the device's busy share of it. The same for the bfloat16
+float net, for comparison. Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -52,7 +53,14 @@ def kernel_times(net, x, iters):
             times[evt.name] = (times.get(evt.name, 0.0)
                                + evt.time_range.elapsed_us() / iters)
         elif evt.kernels:
-            ops[evt.name] = ops.get(evt.name, 0.0) + sum(
+            name = evt.name
+            if name == "aten::copy_":
+                root = evt
+                while root.cpu_parent is not None:
+                    root = root.cpu_parent
+                if root is not evt:
+                    name = f"{name} <- {root.name}"
+            ops[name] = ops.get(name, 0.0) + sum(
                 k.duration for k in evt.kernels) / iters
     return times, ops
 
@@ -63,7 +71,7 @@ def report(name, net, x, iters):
         wall_ms = cuda_ms(lambda: net(x), iters)
     busy_ms = sum(times.values()) / 1e3
     top = sorted(times.items(), key=lambda kv: -kv[1])[:20]
-    gemm_ms = sum(t for k, t in times.items() if "int8_gemm" in k) / 1e3
+    gemm_ms = sum(t for k, t in times.items() if "k3_kernel" in k) / 1e3
     print(json.dumps({
         "net": name, "batch": x.shape[0], "forward_ms": wall_ms,
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
