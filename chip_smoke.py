@@ -12,10 +12,13 @@ Phases, each printed as one JSON line:
    process per source, all started together.
 3. ``kernel``: each kernel against its plain PyTorch version on the card, on
    seeded adversarial inputs at the shapes the serving path gives it, with
-   its time, the plain version's, a library yardstick's and its bound: the
-   fused decode (K1) at every head size, then the int8 convolution (K3) at
-   every distinct call of the calibrated int8 net at batch 256, dense and
-   implicit-GEMM, on that net's own operands.
+   its time (CUDA events around wrapper calls, the kernel alone by the
+   profiler, the wrapper's host time), the plain version's, a library
+   yardstick's and its bound: the fused decode (K1) at every head size, a
+   lone frame, channels-last heads as the int8 path hands them over and
+   edge-case heads (weights negative, 0, NaN, inf), then the int8
+   convolution (K3) at every distinct call of the calibrated int8 net at
+   batch 256, dense and implicit-GEMM, on that net's own operands.
 4. ``model``: DenseRegNet s2/f128/J16 at 128x128 input (seeded random
    weights, ``init_variables``) on the card against the CPU, float32 with
    TF32 off; then the calibrated int8 net on the card (K3) against the
@@ -24,12 +27,14 @@ Phases, each printed as one JSON line:
 5. ``serving``: the main path. ``Predictor`` serves uint16 240x320 frames
    with boxes, 1,024 per request, in float32, bfloat16 and calibrated int8
    (bfloat16 views), then one dynamic int8 request and one lone frame; the
-   kernels' launch counts (and the im2col builds on the card, which must
-   stay 0) are zeroed just before and read just after. Then
-   its decode is held against the plain decode on the same heads, and the
-   whole path against CPU predictors.
+   kernels' launch counts (K1's by staging path, and the im2col builds on
+   the card, which must stay 0) are zeroed just before and read just after.
+   Then its decode is held against the plain decode on the same heads, the
+   whole path against CPU predictors, and each dtype's stages and lone-frame
+   latency are timed.
 6. ``kernel`` once more: the weighted mean shift (K2), which no serving
-   path runs, on the candidates and weights of the serving path's heads.
+   path runs, on the candidates and weights of the serving path's heads and
+   on the vote's edge cases.
 
 Then a ``kernels`` line, the card's ``nvidia-smi`` name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -144,6 +149,20 @@ def device_ms(fn, iters: int, kernel: str, warmup: int = 2, tries: int = 3):
     return None
 
 
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls with no
+    synchronisation between them: the wrapper's own cost where the kernel
+    is shorter than it (the launch queue absorbs the launches)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 # --------------------------------------------------------------------------
 # kernel: fused decode (K1)
 # --------------------------------------------------------------------------
@@ -173,17 +192,44 @@ def decode_scene(rng, b: int, h: int, w: int, j: int):
     return hms, hm3s, um.reshape(b, h, w, 3 * j), tiny, cfgs, coms
 
 
-def as_served(scene, device):
-    """Tensors laid out as the serving path hands them to the decode: the
-    heads are NHWC views of NCHW tensors, the head-grid depth a ``[::4,
-    ::4]`` view of the full-size normalized depth."""
+def decode_edge_scene(rng, b: int, h: int, w: int, j: int):
+    """``decode_scene`` with the vote's edge cases in frames 1-4 (b >= 5):
+    every heatmap negative (every weight negative), every heatmap -1 (the
+    scores all 0, -0 on the background), and one pixel of joint 0 with a
+    NaN heatmap, one of joint 1 with an infinite one, each with hm3 = 1 so
+    that it is picked and its candidate reprojects onto it: a NaN and an
+    infinite weight."""
+    hms, hm3s, ums, tiny, cfgs, coms = decode_scene(rng, b, h, w, j)
+    hms[1] = -rng.integers(1, 5, (h, w, j)) * np.float32(0.25)
+    hms[2] = -1.0
+    for f, jj, val in ((3, 0, np.nan), (4, 1, np.inf)):
+        y, x = h // 2, w // 2
+        hms[f, y, x, jj] = val
+        hm3s[f, y, x, jj] = 1.0
+        tiny[f, y, x, 0] = 0.4
+    return hms, hm3s, ums, tiny, cfgs, coms
+
+
+def as_served(scene, device, layout: str = "nchw"):
+    """Tensors laid out as the serving path hands them to the decode, the
+    head-grid depth a ``[::4, ::4]`` view of the full-size normalized depth
+    and the heads NHWC views of NCHW tensors (``nchw``), channels-last
+    (``nhwc``: the int8 net), or ``mixed``: a channels-last ``hm`` beside
+    NCHW ``hm3`` and ``um`` (the float nets)."""
     hms, hm3s, ums, tiny, cfgs, coms = (torch.from_numpy(a).to(device)
                                         for a in scene)
     nchw = lambda t: t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    heads = [t.contiguous() if layout == "nhwc"
+             or (layout == "mixed" and i == 0) else nchw(t)
+             for i, t in enumerate((hms, hm3s, ums))]
     b, h, w, _ = tiny.shape
     full = torch.full((b, 4 * h, 4 * w, 1), -1.0, device=device)
     full[:, ::4, ::4] = tiny
-    return nchw(hms), nchw(hm3s), nchw(ums), full[:, ::4, ::4], cfgs, coms
+    return (*heads, full[:, ::4, ::4], cfgs, coms)
+
+
+# the staging path K1 takes for each layout (J % 4 == 0)
+K1_PATH = {"nchw": "planes", "nhwc": "pixels", "mixed": "hm_pixels"}
 
 
 def decode_bound(b, h, w, j, num_pt=5, num_it=10):
@@ -222,22 +268,49 @@ def plain_on_cpu(args):
     return fd.fused_decode_reference(*(t.cpu() for t in args))
 
 
-def phase_kernel(device, shapes=DECODE_SHAPES, iters: int = 50):
+def nan_equal_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| where both are finite; inf where either is NaN
+    or infinite and the other is not the same."""
+    both = torch.isfinite(got) & torch.isfinite(want)
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    if not bool((both | same).all()):
+        return float("inf")
+    return float((got - want).where(both, 0.0).abs().max())
+
+
+# (shape, layout): the serving bucket as the float nets hand it over, the
+# head sizes and joint counts with NCHW heads, a lone frame, and the
+# serving bucket as the int8 net hands it over
+DECODE_RUNS = ([((256, 32, 32, 16), "mixed")]
+               + [(s, "nchw") for s in DECODE_SHAPES]
+               + [((1, 32, 32, 16), "mixed"), ((256, 32, 32, 16), "nhwc")])
+
+
+def phase_kernel(device, runs=DECODE_RUNS, iters: int = 50):
+    """K1 on each run and on the edge-case frames in both layouts, against
+    the plain decode on the CPU; each row says which staging path the
+    launch took, which must be the one its layout is for."""
     rng = np.random.default_rng(SEED)
     rows = []
-    for b, h, w, j in shapes:
-        args = as_served(decode_scene(rng, b, h, w, j), device)
+    for (b, h, w, j), layout in runs:
+        args = as_served(decode_scene(rng, b, h, w, j), device, layout)
+        paths = dict(fd.fused_decode.launches_by_path)
         got = fd.fused_decode(*args)
         torch.cuda.synchronize()
+        path = [p for p, n in fd.fused_decode.launches_by_path.items()
+                if n != paths[p]]
         err = (got.cpu() - plain_on_cpu(args)).abs().max().item()
         err_card = (got - fd.fused_decode_reference(*args)).abs().max().item()
         scores = decode.refined_heatmaps(*args[:2], args[3]).reshape(
             b, h * w, j).transpose(1, 2).contiguous()
         bound_ms, bound_by = decode_bound(b, h, w, j)
+        run = lambda: fd.fused_decode(*args)
         row = {"phase": "kernel", "name": "fused_decode",
-               "shape": {"b": b, "h": h, "w": w, "j": j},
-               "max_abs_err": err, "vs_plain_on_card": err_card,
-               "ms": cuda_ms(lambda: fd.fused_decode(*args), iters),
+               "shape": {"b": b, "h": h, "w": w, "j": j}, "layout": layout,
+               "path": path, "max_abs_err": err, "vs_plain_on_card": err_card,
+               "ms": cuda_ms(run, iters),
+               "device_ms": device_ms(run, iters, "fused_decode"),
+               "host_us": host_us(run),
                "plain_ms": cuda_ms(lambda: fd.fused_decode_reference(*args),
                                    max(iters // 10, 3)),
                "library_ms": cuda_ms(lambda: topk_gather_stage(scores,
@@ -248,7 +321,22 @@ def phase_kernel(device, shapes=DECODE_SHAPES, iters: int = 50):
         check(bool(torch.isfinite(got).all()), f"decode {b, h, w, j}: NaN")
         check(err <= K1_TOL, f"fused_decode {b, h, w, j}: max |err| {err} "
                              f"> {K1_TOL}")
+        check(path == [K1_PATH[layout]], f"fused_decode {b, h, w, j} "
+                                         f"{layout}: took {path}")
         rows.append(row)
+    scene = decode_edge_scene(rng, 8, 32, 32, 16)
+    for layout in K1_PATH:
+        args = as_served(scene, device, layout)
+        got = fd.fused_decode(*args)
+        torch.cuda.synchronize()
+        want = plain_on_cpu(args)
+        err = nan_equal_err(got.cpu(), want)
+        emit({"phase": "kernel", "name": "fused_decode", "edge_cases": True,
+              "shape": {"b": 8, "h": 32, "w": 32, "j": 16}, "layout": layout,
+              "max_abs_err": err,
+              "nan_joints": int(torch.isnan(want).any(-1).sum())})
+        check(err <= K1_TOL, f"fused_decode edge cases {layout}: max |err| "
+                             f"{err} > {K1_TOL}")
     return rows
 
 
@@ -482,10 +570,81 @@ def meanshift_bound(p, n, num_it=10):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def vote_edge_cases(seed: int = SEED):
+    """The vote's edge cases, ``{name: (cans (P, n, 3), weights (P, n))}``
+    as float32 numpy arrays, a few problems each. Cells over [-1, 1]^3 at a
+    grid of 4: a coordinate below -0.5 is index 0, at or above 0.5 index
+    3; cell 0 is (-0.75,) * 3, cell 63 (0.75,) * 3, cell 62 (0.75, 0.75,
+    0.25)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    hi, lo = f32(0.75), f32(-0.75)
+
+    def spread(p, n, a=-0.9, b=0.9):
+        return rng.uniform(a, b, (p, n, 3)).astype(f32)
+
+    cases = {}
+    # every weight negative: the last empty cell starts (63, then 62, 61)
+    cans = spread(3, 5, -0.9, -0.1)
+    cans[1, 0] = cans[2, 0] = hi
+    cans[2, 1] = [hi, hi, 0.25]
+    cases["all_negative"] = (cans, -rng.uniform(0.1, 1.0, (3, 5)).astype(f32))
+    # an occupied vote of exactly 0 beside empty cells (0.5 - 0.5, or
+    # zeros, or -0): the later index wins the tie
+    cans = spread(4, 5, -0.9, -0.6)
+    cans[0, :2] = hi
+    cans[3, 0] = hi
+    w = np.full((4, 5), -0.25, f32)
+    w[0, :2] = w[1, :2] = [0.5, -0.5]
+    w[2] = 0.0
+    w[3] = -0.0
+    cases["zero_vote"] = (cans, w)
+    # every candidate in one cell: cell 0, then cell 63
+    cans = np.stack([lo + spread(1, 5, -0.2, 0.2)[0],
+                     hi + spread(1, 5, -0.2, 0.2)[0]])
+    cases["one_cell"] = (cans, rng.uniform(0.1, 1.0, (2, 5)).astype(f32))
+    # coordinates at and past +-1 (clipped into the outer cells)
+    edge = np.array([-3.0, -1.5, -1.0, -0.5, 0.0, 0.5, 1.0, 1.5, 3.0], f32)
+    cases["at_and_past_edges"] = (rng.choice(edge, (3, 5, 3)).astype(f32),
+                                  rng.uniform(0.1, 1.0, (3, 5)).astype(f32))
+    # NaN coordinates quantize to index 0 (all three NaN: cell 0); the mean
+    # shift's weight sum is then NaN and the start is kept
+    cans = spread(2, 5)
+    cans[0, 1] = np.nan
+    cans[1, 0, 0] = np.nan
+    w = rng.uniform(0.1, 1.0, (2, 5)).astype(f32)
+    w[0, 1] = 5.0
+    cases["nan_candidates"] = (cans, w)
+    # a NaN weight makes every cell's vote NaN: cell 63 starts, as argmax
+    # takes the last NaN, and the NaN weight sum keeps it
+    cans = spread(2, 5)
+    cans[1, 3] = hi
+    w = rng.uniform(0.1, 1.0, (2, 5)).astype(f32)
+    w[0, 2] = w[1, 3] = np.nan
+    cases["nan_weight"] = (cans, w)
+    # an infinite weight makes every other cell's vote NaN (inf * 0): 63,
+    # or 62 where the infinity sits in 63; inf - inf in one cell is NaN
+    cans = spread(4, 5, -0.9, 0.4)
+    cans[1, 2] = hi
+    cans[3, 1] = cans[3, 3] = [0.1, 0.1, 0.1]
+    w = rng.uniform(0.1, 1.0, (4, 5)).astype(f32)
+    w[0, 2] = w[1, 2] = w[3, 1] = np.inf
+    w[2, 4] = w[3, 3] = -np.inf
+    cases["inf_weight"] = (cans, w)
+    # one candidate, and eight (ties between cells, a zero-weight problem)
+    for n in (1, 8):
+        cans = (rng.integers(-4, 5, (6, n, 3)) * 0.22).astype(f32)
+        w = (rng.integers(-1, 4, (6, n)) * 0.25).astype(f32)
+        w[0] = 0.0
+        cases[f"n{n}"] = (cans, w)
+    return cases
+
+
 def phase_kernel_meanshift(heads, ecfg, device, iters: int = 50):
     """K2 on the candidates and weights that the plain decode (on the CPU)
     draws from the serving path's heads, against the plain mean shift on
-    the CPU."""
+    the CPU; then on the vote's edge cases (NaN and infinite results
+    compared as values)."""
     heads = tuple(t.cpu() for t in heads)
     _, cans, weights = decode.decode_plain(*heads, ecfg)
     want = decode.weighted_mean_shift(cans, weights, ecfg.mean_shift_iters,
@@ -498,18 +657,30 @@ def phase_kernel_meanshift(heads, ecfg, device, iters: int = 50):
     err = (got.cpu() - want).abs().max().item()
     b, j, n, _ = cans.shape
     bound_ms, bound_by = meanshift_bound(b * j, n, ecfg.mean_shift_iters)
+    edge = {}
+    for name, (e_cans, e_w) in vote_edge_cases().items():
+        e_cans, e_w = torch.from_numpy(e_cans), torch.from_numpy(e_w)
+        e_got = k2.weighted_mean_shift_cuda(e_cans[None].to(device),
+                                            e_w[None].to(device))[0]
+        edge[name] = nan_equal_err(e_got.cpu(), decode.weighted_mean_shift(
+            e_cans, e_w, 10, 0.4))
     row = {"phase": "kernel", "name": "weighted_mean_shift",
            "shape": {"b": b, "j": j, "n": n},
            "zero_weight_problems": int((weights == 0).all(-1).sum()),
-           "max_abs_err": err,
+           "max_abs_err": max(err, *edge.values()), "serving_err": err,
+           "edge_case_errs": edge,
            "ms": cuda_ms(run, iters),
+           "device_ms": device_ms(run, iters, "meanshift"),
+           "host_us": host_us(run),
            "plain_ms": cuda_ms(lambda: decode.weighted_mean_shift(
                d_cans, d_w, ecfg.mean_shift_iters, ecfg.band_width,
                ecfg.vote_grid), 5),
            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
     emit(row)
     check(bool(torch.isfinite(got).all()), "weighted_mean_shift: NaN")
-    check(err <= K2_TOL, f"weighted_mean_shift: max |err| {err} > {K2_TOL}")
+    check(row["max_abs_err"] <= K2_TOL,
+          f"weighted_mean_shift: max |err| {row['max_abs_err']} > {K2_TOL} "
+          f"(edge cases: {edge})")
     return row
 
 
@@ -645,6 +816,7 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
 
     # the main path: counts zeroed just before, read just after
     fd.fused_decode.launches = 0
+    fd.fused_decode.launches_by_path = dict.fromkeys(fd.PATHS, 0)
     k3.int8_gemm_requant.launches = 0
     k2.weighted_mean_shift_cuda.launches = 0
     k3.im2col_nhwc.cuda_calls = 0
@@ -660,9 +832,14 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
     secs["int8_dynamic"] = [time.perf_counter() - t0]
     lone = preds["float32"](frames[:1], bbxs[:1])
     launches = {"fused_decode": fd.fused_decode.launches,
+                "fused_decode_by_path": dict(fd.fused_decode.launches_by_path),
                 "int8_gemm_requant": k3.int8_gemm_requant.launches,
                 "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches}
     im2col_on_card = k3.im2col_nhwc.cuda_calls
+    decode_strides = {
+        name: [t.stride() for t in pred._heads(
+            pred._to_device(frames[:1]), pred._to_device(bbxs[:1]))[:4]]
+        for name, pred in preds.items()}
     per_request = -(-n_frames // max_batch)
     int8_dispatches = (reps + 1) * per_request
     dispatches = 2 * reps * per_request + int8_dispatches + 1
@@ -679,6 +856,7 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
                            for d, s in secs.items()},
           "request_s": secs, "dispatches": dispatches,
           "int8_dispatches": int8_dispatches, "launches": launches,
+          "decode_input_strides": decode_strides,
           "im2col_nhwc_cuda_calls": im2col_on_card})
     j3 = 3 * net_cfg.num_joint
     for name, out in xyz.items():
@@ -688,6 +866,15 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
         check(launches["fused_decode"] == dispatches,
               f"fused_decode launched {launches['fused_decode']} times in "
               f"{dispatches} dispatches")
+        # the float nets' heads (channels-last hm, NCHW hm3) take the
+        # hm_pixels path, the int8 net's channels-last heads the pixels path
+        want_paths = dict.fromkeys(fd.PATHS, 0)
+        want_paths.update(hm_pixels=dispatches - int8_dispatches,
+                          pixels=int8_dispatches)
+        check(launches["fused_decode_by_path"] == want_paths,
+              f"fused_decode paths {launches['fused_decode_by_path']}, "
+              f"expected {want_paths} (decode inputs' strides: "
+              f"{decode_strides})")
         check(launches["int8_gemm_requant"] == convs * int8_dispatches,
               f"int8_gemm_requant launched {launches['int8_gemm_requant']} "
               f"times, not {convs} convolutions x {int8_dispatches} "
@@ -696,7 +883,9 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
               f"{im2col_on_card} int8 convolutions built an im2col on the "
               f"card instead of running K3's implicit GEMM")
     else:
-        check(not any(launches.values()), "a kernel launched on the CPU")
+        check(not any(v if isinstance(v, int) else any(v.values())
+                      for v in launches.values()),
+              "a kernel launched on the CPU")
 
     # the kernel against the plain decode on the served heads
     b = min(n_frames, max_batch)
@@ -743,7 +932,9 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
           f"card vs CPU heads {checks['card_vs_cpu_float32']['max_head_err']}")
 
     emit({"phase": "serving_stages", "batch": b,
-          **{d: stage_ms(p, frames[:b], bbxs[:b]) for d, p in preds.items()}})
+          **{d: stage_ms(p, frames[:b], bbxs[:b]) for d, p in preds.items()},
+          "lone_frame": {d: lone_frame_ms(p, frames, bbxs)
+                         for d, p in preds.items()}})
     return launches, preds, frames, bbxs
 
 
@@ -792,6 +983,28 @@ def stage_ms(pred: Predictor, frames: np.ndarray, bbxs: np.ndarray,
                               iters)}
 
 
+def lone_frame_ms(pred: Predictor, frames: np.ndarray, bbxs: np.ndarray,
+                  n: int = 20):
+    """Latency of a lone frame (bucket 1): the median of ``n`` one-frame
+    requests by the host clock (each ends in the copy of its result to the
+    host, so in a synchronisation), frames taken in turn; and the decode's
+    share, its CUDA-event time at batch 1 over that median."""
+    secs = []
+    for i in range(n + 1):
+        i %= len(frames)
+        t0 = time.perf_counter()
+        pred(frames[i:i + 1], bbxs[i:i + 1])
+        secs.append(time.perf_counter() - t0)
+    median_ms = statistics.median(secs[1:]) * 1e3
+    with torch.inference_mode():
+        heads = pred._heads(pred._to_device(frames[:1]),
+                            pred._to_device(bbxs[:1]))
+        dec = cuda_ms(lambda: decode.decode_poses(*heads, pred.ecfg), 20)
+    return {"requests": n, "median_ms": median_ms,
+            "min_ms": min(secs[1:]) * 1e3, "decode_ms": dec,
+            "decode_share": dec / median_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -822,14 +1035,21 @@ def main() -> int:
         torch.from_numpy(frames[:b]).cuda(), torch.from_numpy(bbxs[:b]).cuda()),
         preds["float32"].ecfg, "cuda")
 
+    # the serving bucket as the float nets (hm_pixels) and the int8 net
+    # (pixels) hand it over
     main_row = rows[0]
+    int8_row = next(r for r in rows if r["layout"] == "nhwc")
     emit({"kernels": [{
         "name": "fused_decode", "route": "cuda",
         "source": "densereg_torch/csrc/fused_decode.cu",
+        "includes": ["densereg_torch/csrc/vote_meanshift.cuh"],
         "replaces": "densereg_tpu/ops/fused_decode.py:39",
         "launches": launches["fused_decode"],
+        "launches_by_path": launches["fused_decode_by_path"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "ms": main_row["ms"], "device_ms": main_row["device_ms"],
+        "device_ms_channels_last": int8_row["device_ms"],
+        "host_us": main_row["host_us"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"]}, {
         # one forward of the int8 net at batch 256: every call, summed. The
@@ -848,10 +1068,12 @@ def main() -> int:
         "library_ms": k3_total["library_ms"] + k3_total["im2col_ms"]}, {
         "name": "weighted_mean_shift", "route": "cuda",
         "source": "densereg_torch/csrc/meanshift.cu",
+        "includes": ["densereg_torch/csrc/vote_meanshift.cuh"],
         "replaces": "densereg_tpu/ops/meanshift_pallas.py:33",
         "launches": launches["weighted_mean_shift"],
         "max_abs_err": k2_row["max_abs_err"],
-        "ms": k2_row["ms"], "plain_ms": k2_row["plain_ms"],
+        "ms": k2_row["ms"], "device_ms": k2_row["device_ms"],
+        "host_us": k2_row["host_us"], "plain_ms": k2_row["plain_ms"],
         "bound_ms": k2_row["bound_ms"], "bound_by": k2_row["bound_by"],
         "library_ms": None}]})
     print(smi, flush=True)

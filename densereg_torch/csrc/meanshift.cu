@@ -1,4 +1,4 @@
-// Weighted mean shift from a vote-grid start, one thread per problem.
+// Weighted mean shift from a vote-grid start, four problems a warp.
 //
 // Replaces the TPU kernel
 // densereg_tpu/ops/meanshift_pallas.py::weighted_mean_shift_pallas (Pallas
@@ -6,104 +6,64 @@
 // For each of the P = b * J problems, with n candidates c_i and weights w_i:
 //   1. quantize each candidate to a grid^3 cell over [-1, 1]^3, sum the
 //      weights per cell, and start at the center of the LAST maximal cell
-//      (cells in row-major order, ties kept with >=);
+//      (cells in row-major order; a NaN vote is maximal, as in argmax);
 //   2. num_it Gaussian steps: s_i = exp(inv_sigma * |c_i - x|^2) * w_i,
 //      x = sum(s_i c_i) / sum(s_i); where sum(s_i) is not positive (all
 //      weights 0) the center is kept.
 //
 // Bound: operations, and small ones. A problem reads 4n floats and writes
-// 3; it does about 64 n compares for the vote and 20 n operations a step.
-// At the serving shape (P = 256 * 16, n = 5) that is a few microseconds of
-// memory traffic, below a launch's own cost.
+// 3; it does about 64 n compares for the dense vote and 20 n operations a
+// step. At the serving shape (P = 256 * 16, n = 5) that is 0.11 us of
+// memory traffic, below a launch's own cost: what the kernel can shorten is
+// its critical path, one problem's chain.
 //
-// Design: the TPU kernel put the problems on the 128 vector lanes and
-// padded the last tile with weight 1. Here one thread takes one problem,
-// with its n candidates in registers (n is a template parameter, 1 to 8),
-// so nothing is padded and no lanes talk to each other; blocks of 128
-// threads cover P. The vote scans the grid^3 cells in order and sums, in
-// candidate order, the weights that fall into each, as the plain version's
-// one-hot sum does.
-//
-// Numerics: build with --fmad=false and without --use_fast_math: IEEE
-// division, expf, candidate sums from first to last, no contraction.
+// Design: the TPU kernel put the problems on the 128 vector lanes. Here an
+// 8-lane segment takes one problem, four problems a warp and blocks of 128
+// threads: P = 4,096 spreads over 256 blocks, all SMs. Lane i loads
+// candidate i (the segment reads its problem's 4n floats in one go), and
+// the segment runs the shared tail of vote_meanshift.cuh: the vote over the
+// occupied cells only, O(n^2) instead of 64 n, and the mean shift in
+// registers unrolled over n (a template parameter, 1 to 8), its n
+// exponentials a step independent.
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "vote_meanshift.cuh"
 
 namespace {
 
+constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+
 template <int N>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads)
 meanshift_kernel(const float* __restrict__ cans, const float* __restrict__ w,
-                 float* __restrict__ out, int P, int num_it, float inv_sigma,
-                 int grid, float grid_hi) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  float cx[N], cy[N], cz[N], cw[N];
-  int cell[N];
-  const float nq = (float)(grid / 2);
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const float* c = cans + ((long long)p * N + n) * 3;
-    cx[n] = c[0];
-    cy[n] = c[1];
-    cz[n] = c[2];
-    cw[n] = w[(long long)p * N + n];
-    // fmaxf maps NaN to 0, as nan_to_num before the clip
-    const int qx = __float2int_rz(fminf(fmaxf((cx[n] + 1.0f) * nq, 0.0f), grid_hi));
-    const int qy = __float2int_rz(fminf(fmaxf((cy[n] + 1.0f) * nq, 0.0f), grid_hi));
-    const int qz = __float2int_rz(fminf(fmaxf((cz[n] + 1.0f) * nq, 0.0f), grid_hi));
-    cell[n] = (qx * grid + qy) * grid + qz;
+                 float* __restrict__ out, long long P, int num_it,
+                 float inv_sigma, int grid, float grid_hi) {
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long p = g / vote_meanshift::kSeg;
+  const int i = (int)(g % vote_meanshift::kSeg);
+  // lanes past P still take part in the segment's shuffles, on zeros
+  float cx = 0.0f, cy = 0.0f, cz = 0.0f, cw = 0.0f;
+  if (p < P && i < N) {
+    const float* c = cans + (p * N + i) * 3;
+    cx = c[0];
+    cy = c[1];
+    cz = c[2];
+    cw = w[p * N + i];
   }
-
-  // 1. vote: every cell in row-major order, best starting at -1 (an empty
-  // cell votes 0, so the best is never below 0)
-  float best = -1.0f;
-  int best_cell = 0;
-  const int cells = grid * grid * grid;
-  for (int c = 0; c < cells; ++c) {
-    float votes = 0.0f;
-#pragma unroll
-    for (int n = 0; n < N; ++n)
-      if (cell[n] == c) votes += cw[n];
-    if (votes >= best) {
-      best = votes;
-      best_cell = c;
-    }
-  }
-  float ax = (float)(best_cell / (grid * grid)) / nq - 1.0f + 0.5f / nq;
-  float ay = (float)((best_cell / grid) % grid) / nq - 1.0f + 0.5f / nq;
-  float az = (float)(best_cell % grid) / nq - 1.0f + 0.5f / nq;
-
-  // 2. mean-shift steps
-  for (int it = 0; it < num_it; ++it) {
-    float den = 0.0f, nx = 0.0f, ny = 0.0f, nz = 0.0f;
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const float dx = cx[n] - ax;
-      const float dy = cy[n] - ay;
-      const float dz = cz[n] - az;
-      const float s = expf(inv_sigma * (dx * dx + dy * dy + dz * dz)) * cw[n];
-      nx += cx[n] * s;
-      ny += cy[n] * s;
-      nz += cz[n] * s;
-      den += s;
-    }
-    if (den > 0.0f) {
-      ax = nx / den;
-      ay = ny / den;
-      az = nz / den;
-    }
-  }
-  out[(long long)p * 3 + 0] = ax;
-  out[(long long)p * 3 + 1] = ay;
-  out[(long long)p * 3 + 2] = az;
+  const float3 r = vote_meanshift::run<N>(kFull, cx, cy, cz, cw, num_it,
+                                          inv_sigma, grid, grid_hi);
+  if (p < P && i < 3) out[p * 3 + i] = i == 0 ? r.x : (i == 1 ? r.y : r.z);
 }
 
 template <int N>
-void launch(const float* cans, const float* w, float* out, int P, int num_it,
-            float inv_sigma, int grid, float grid_hi, cudaStream_t stream) {
-  meanshift_kernel<N><<<(P + 127) / 128, 128, 0, stream>>>(
+void launch(const float* cans, const float* w, float* out, long long P,
+            int num_it, float inv_sigma, int grid, float grid_hi,
+            cudaStream_t stream) {
+  const long long threads = P * vote_meanshift::kSeg;
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  meanshift_kernel<N><<<blocks, kThreads, 0, stream>>>(
       cans, w, out, P, num_it, inv_sigma, grid, grid_hi);
 }
 
@@ -113,8 +73,9 @@ void launch(const float* cans, const float* w, float* out, int P, int num_it,
 // contiguous; 1 <= n <= 8. Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for another n.
 extern "C" int meanshift_launch(const float* cans, const float* w, float* out,
-                                int P, int n, int num_it, float inv_sigma,
-                                int grid, float grid_hi, void* stream) {
+                                long long P, int n, int num_it,
+                                float inv_sigma, int grid, float grid_hi,
+                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (n) {
     case 1: launch<1>(cans, w, out, P, num_it, inv_sigma, grid, grid_hi, s); break;

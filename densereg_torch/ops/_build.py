@@ -24,6 +24,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -31,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+# the current stream's raw handle, without building a torch.cuda.Stream
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def nvcc_path() -> str:
@@ -111,3 +116,10 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(build([name])[name]))
         return _loaded[name]
+
+
+def stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, for a launch."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream

@@ -16,12 +16,17 @@ from densereg_torch import decode
 from densereg_torch.config import EvalConfig
 from densereg_torch.ops import _build
 
-MAX_JOINTS = 32   # one warp per joint in a block of at most 1024 threads
-MAX_PICKS = 8     # each lane's running list (kList in the source)
+MAX_JOINTS = 32   # the grid's joint axis: ceil(J / 4) blocks of 4 warps
+MAX_PICKS = 8     # the shared tail's 8-lane segment (kSeg in the source)
+# the kernel's staging paths, by the layouts of hm and hm3: both read along
+# pixel stride 1 (NHWC views of NCHW heads), hm or hm3 or both read along
+# channel stride 1 (channels-last heads, J % 4 == 0), any other strides
+PATHS = ("planes", "hm_pixels", "hm3_pixels", "pixels", "strided")
 
 _ARGTYPES = ([ctypes.c_void_p] * 8
              + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_void_p])
+_strides = {}               # stride tuples -> their ctypes array
 
 
 def _lib() -> ctypes.CDLL:
@@ -77,34 +82,55 @@ def fused_decode(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt: int = 5,
     cfgs (b, 6); coms (b, 3), all float32 with any strides -> normalized
     poses (b, j, 3).
 
-    Each launch of the kernel adds one to ``fused_decode.launches``.
+    Each launch of the kernel adds one to ``fused_decode.launches`` and to
+    ``fused_decode.launches_by_path[path]``, ``path`` one of
+    :data:`PATHS`.
     """
     if not hms.is_cuda:
         return fused_decode_reference(hms, hm3s, ums, tiny_dms, cfgs, coms,
                                       num_pt, num_it, band_width, vote_grid)
-    _check(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt)
     b, h, w, j = hms.shape
-    out = torch.empty((b, j, 3), dtype=torch.float32, device=hms.device)
+    dev = hms.device
+    f32 = torch.float32
+    if not (hm3s.shape == hms.shape and ums.shape == (b, h, w, 3 * j)
+            and tiny_dms.shape == (b, h, w, 1) and cfgs.shape == (b, 6)
+            and coms.shape == (b, 3) and hms.dtype == f32
+            and hm3s.dtype == f32 and ums.dtype == f32
+            and tiny_dms.dtype == f32 and cfgs.dtype == f32
+            and coms.dtype == f32 and hm3s.device == dev
+            and ums.device == dev and tiny_dms.device == dev
+            and cfgs.device == dev and coms.device == dev
+            and 1 <= j <= MAX_JOINTS and 1 <= num_pt <= MAX_PICKS
+            and num_pt <= h * w):
+        _check(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt)
+    out = torch.empty((b, j, 3), dtype=f32, device=dev)
     if b == 0:
         return out
     cfgs = cfgs.contiguous()
     coms = coms.contiguous()
-    strides = (ctypes.c_longlong * 16)(
-        *(s for t in (hms, hm3s, ums, tiny_dms) for s in t.stride()))
-    lib = _lib()
-    with torch.cuda.device(hms.device):
-        err = lib.fused_decode_launch(
-            hms.data_ptr(), hm3s.data_ptr(), ums.data_ptr(),
+    key = (hms.stride(), hm3s.stride(), ums.stride(), tiny_dms.stride())
+    strides = _strides.get(key)
+    if strides is None:
+        strides = _strides[key] = (ctypes.c_longlong * 16)(
+            *(s for t in key for s in t))
+    args = (hms.data_ptr(), hm3s.data_ptr(), ums.data_ptr(),
             tiny_dms.data_ptr(), strides, cfgs.data_ptr(), coms.data_ptr(),
             out.data_ptr(), b, h, w, j, num_pt, num_it,
             -1.0 / (2.0 * band_width * band_width), vote_grid,
-            float(vote_grid) - 0.1,
-            torch.cuda.current_stream(hms.device).cuda_stream)
-    if err != 0:
+            float(vote_grid) - 0.1)
+    launch = _lib().fused_decode_launch
+    if dev.index == torch.cuda.current_device():
+        path = launch(*args, _build.stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            path = launch(*args, _build.stream(dev))
+    if path < 0:
         raise RuntimeError(f"fused_decode: kernel launch failed with "
-                           f"cudaError_t {err}")
+                           f"cudaError_t {-path}")
     fused_decode.launches += 1
+    fused_decode.launches_by_path[PATHS[path]] += 1
     return out
 
 
 fused_decode.launches = 0
+fused_decode.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -3,9 +3,10 @@
 Replaces the TPU kernel
 ``densereg_tpu/ops/meanshift_pallas.py::weighted_mean_shift_pallas``. As in
 the JAX package it is exported but on no serving path: the fused decode
-(``ops.fused_decode``) runs the same stage inside its own kernel. On CUDA
-tensors :func:`weighted_mean_shift_cuda` launches the hand-written kernel
-(or raises); on CPU tensors it runs the plain version,
+(``ops.fused_decode``) runs the same stage inside its own kernel (both
+include ``csrc/vote_meanshift.cuh``). On CUDA tensors
+:func:`weighted_mean_shift_cuda` launches the hand-written kernel (or
+raises); on CPU tensors it runs the plain version,
 ``decode.weighted_mean_shift``.
 """
 
@@ -18,9 +19,9 @@ import torch
 from densereg_torch import decode
 from densereg_torch.ops import _build
 
-MAX_CANDIDATES = 8   # the kernel is instantiated for n = 1..8
+MAX_CANDIDATES = 8   # one candidate a lane of an 8-lane segment
 
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
@@ -48,28 +49,32 @@ def weighted_mean_shift_cuda(cans, weights, num_it: int = 10,
         return decode.weighted_mean_shift(cans, weights, num_it, band_width,
                                           grid)
     b, j, n, three = cans.shape
-    if three != 3 or tuple(weights.shape) != (b, j, n):
+    if three != 3 or weights.shape != (b, j, n):
         raise ValueError(f"weighted_mean_shift_cuda: cans {tuple(cans.shape)}"
                          f" and weights {tuple(weights.shape)} are not "
                          f"(b, j, n, 3) and (b, j, n)")
     if cans.dtype != torch.float32 or weights.dtype != torch.float32:
         raise TypeError("weighted_mean_shift_cuda: float32 only")
-    if weights.device != cans.device:
+    dev = cans.device
+    if weights.device != dev:
         raise ValueError("weighted_mean_shift_cuda: one device for both")
     if not 1 <= n <= MAX_CANDIDATES:
         raise ValueError(f"weighted_mean_shift_cuda: 1..{MAX_CANDIDATES} "
                          f"candidates, got {n}")
-    out = torch.empty((b, j, 3), dtype=torch.float32, device=cans.device)
+    out = torch.empty((b, j, 3), dtype=torch.float32, device=dev)
     if b * j == 0:
         return out
     cans = cans.contiguous()
     weights = weights.contiguous()
-    with torch.cuda.device(cans.device):
-        err = _lib().meanshift_launch(
-            cans.data_ptr(), weights.data_ptr(), out.data_ptr(), b * j, n,
+    args = (cans.data_ptr(), weights.data_ptr(), out.data_ptr(), b * j, n,
             num_it, -1.0 / (2.0 * band_width * band_width), grid,
-            float(grid) - 0.1,
-            torch.cuda.current_stream(cans.device).cuda_stream)
+            float(grid) - 0.1)
+    launch = _lib().meanshift_launch
+    if dev.index == torch.cuda.current_device():
+        err = launch(*args, _build.stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = launch(*args, _build.stream(dev))
     if err != 0:
         raise RuntimeError(f"weighted_mean_shift_cuda: kernel launch failed "
                            f"with cudaError_t {err}")

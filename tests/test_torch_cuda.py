@@ -9,8 +9,9 @@ run on a machine without it:
 Tolerances. The fused decode (K1) and the mean shift (K2): 6e-6
 normalized (PARITY.md, fused-decode row), against the plain version
 evaluated on the CPU (``chip_smoke.plain_on_cpu`` says why not on the
-card); the kernels repeat the plain arithmetic operation by operation and
-what is left is ``expf`` against the CPU's ``exp``. The int8 GEMM (K3):
+card), NaN for NaN on the edge cases; the kernels repeat the plain
+arithmetic operation by operation and what is left is their correctly
+rounded exponential against the CPU's float ``exp``, within 1 ulp. The int8 GEMM (K3):
 ``q`` bit-identical and ``f`` within 1 ulp of its plain version on the
 card, whose float64 product is exact; the same for its implicit-GEMM
 convolution entry against im2col and the plain GEMM; an int8 net on K3
@@ -25,9 +26,13 @@ import numpy as np  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
     DECODE_SHAPES,
+    K1_PATH,
     as_served,
+    decode_edge_scene,
     decode_scene,
+    nan_equal_err,
     plain_on_cpu,
+    vote_edge_cases,
 )
 from densereg_torch import decode  # noqa: E402
 from densereg_torch.models import layers  # noqa: E402
@@ -59,6 +64,97 @@ def test_fused_decode_matches_plain(cuda, b, h, w, j):
     assert ops.fused_decode.launches == before + 1
     assert got.shape == (b, j, 3) and torch.isfinite(got).all()
     assert (got.cpu() - want).abs().max().item() <= 6e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(K1_PATH))
+@pytest.mark.parametrize("hw", [32, 64, 128])
+@pytest.mark.parametrize("j", [1, 14, 16, 21, 32])
+def test_fused_decode_lone_frame(cuda, j, hw, layout):
+    """One frame (one block a joint group), every k from 1 to 8, each
+    layout: NHWC views of NCHW heads, and any one-joint heads (a plane),
+    take the planes path; channels-last heads read along the channels
+    where J % 4 == 0 and fall to the strided path otherwise."""
+    scene = decode_scene(np.random.default_rng(j * hw), 2, hw, hw, j)
+    args = as_served(tuple(a[1:] for a in scene), cuda, layout)
+    path = ("planes" if j == 1 or layout == "nchw" else
+            K1_PATH[layout] if j % 4 == 0 else "strided")
+    for k in range(1, 9):
+        want = ops.fused_decode_reference(*(t.cpu() for t in args), num_pt=k)
+        before = dict(ops.fused_decode.launches_by_path)
+        got = ops.fused_decode(*args, num_pt=k)
+        torch.cuda.synchronize()
+        assert ops.fused_decode.launches_by_path[path] == before[path] + 1
+        assert got.shape == (1, j, 3) and torch.isfinite(got).all()
+        assert (got.cpu() - want).abs().max().item() <= 6e-6, k
+
+
+@pytest.mark.cuda
+def test_fused_decode_reads_any_strides(cuda):
+    """Heads cut from wider tensors (pixel and row strides that are not
+    the served ones) and a transposed depth view take the strided path and
+    agree with the plain decode."""
+    scene = decode_scene(np.random.default_rng(9), 3, 32, 32, 16)
+    hms, hm3s, ums, tiny, cfgs, coms = (torch.from_numpy(a).to(cuda)
+                                        for a in scene)
+    wide = lambda t: torch.cat([t, t[..., :3]], -1)[..., :t.shape[-1]]
+    args = (wide(hms), wide(hm3s), wide(ums),
+            tiny.transpose(1, 2).contiguous().transpose(1, 2), cfgs, coms)
+    before = ops.fused_decode.launches_by_path["strided"]
+    got = ops.fused_decode(*args)
+    torch.cuda.synchronize()
+    assert ops.fused_decode.launches_by_path["strided"] == before + 1
+    assert (got.cpu() - plain_on_cpu(args)).abs().max().item() <= 6e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(K1_PATH))
+def test_fused_decode_edge_cases(cuda, layout):
+    """All weights 0 or negative, scores all 0, a NaN and an infinite
+    weight (chip_smoke.decode_edge_scene), against the plain decode on the
+    CPU, NaN for NaN. The NaN weight keeps the cell-63 start, JAX's answer
+    (tests/test_torch_decode.py pins it against the JAX package)."""
+    args = as_served(decode_edge_scene(np.random.default_rng(5), 8, 32, 32,
+                                       16), cuda, layout)
+    got = ops.fused_decode(*args).cpu()
+    assert nan_equal_err(got, plain_on_cpu(args)) <= 6e-6
+    assert torch.equal(got[3, 0], torch.full((3,), 0.75))
+    assert torch.isnan(got[4, 1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(vote_edge_cases()))
+def test_meanshift_edge_cases(cuda, name):
+    """K2 on the vote's edge cases against the plain version on the CPU
+    (tests/test_torch_meanshift.py holds that against the JAX package),
+    NaN for NaN; a NaN weight keeps the cell-63 start."""
+    cans, weights = (torch.from_numpy(a)[None]
+                     for a in vote_edge_cases()[name])
+    want = decode.weighted_mean_shift(cans, weights, 10, 0.4)
+    got = k2.weighted_mean_shift_cuda(cans.to(cuda), weights.to(cuda), 10,
+                                      0.4).cpu()
+    assert nan_equal_err(got, want) <= 6e-6
+    if name == "nan_weight":
+        assert torch.equal(got, torch.full((1, 2, 3), 0.75))
+
+
+@pytest.mark.cuda
+def test_refused_launches_raise(cuda, monkeypatch):
+    """A launch that the C entry refuses (here k = 9, past its 8-lane
+    tail, with the wrappers' own checks lifted) raises and counts
+    nothing."""
+    args = as_served(decode_scene(np.random.default_rng(0), 2, 32, 32, 16),
+                     cuda)
+    monkeypatch.setattr(ops, "MAX_PICKS", 9)
+    monkeypatch.setattr(k2, "MAX_CANDIDATES", 9)
+    before = (ops.fused_decode.launches, k2.weighted_mean_shift_cuda.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.fused_decode(*args, num_pt=9)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k2.weighted_mean_shift_cuda(torch.zeros((1, 1, 9, 3), device=cuda),
+                                    torch.zeros((1, 1, 9), device=cuda))
+    assert (ops.fused_decode.launches,
+            k2.weighted_mean_shift_cuda.launches) == before
 
 
 def _gemm_operands(rng, m, k, n, device):

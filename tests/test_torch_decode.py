@@ -20,6 +20,7 @@ from densereg_tpu import decode as jdecode  # noqa: E402
 from densereg_tpu.config import EvalConfig as JEvalConfig  # noqa: E402
 from densereg_tpu.ops.fused_decode import fused_decode as jfused  # noqa: E402
 
+from chip_smoke import as_served, decode_edge_scene, decode_scene  # noqa: E402
 from densereg_torch import decode  # noqa: E402
 from densereg_torch.ops import fused_decode as ops  # noqa: E402  (module)
 from tests.test_decode_oracle import _random_scene  # noqa: E402
@@ -92,3 +93,48 @@ def test_vote_grid_keeps_last_cell_when_weights_vanish():
     out = decode.weighted_mean_shift(cans, torch.zeros((1, 5)), 10, 0.4)
     np.testing.assert_array_equal(out.numpy(), [[0.75, 0.75, 0.75]])
 
+
+
+@pytest.mark.parametrize("hw", [32, 64])
+def test_plain_decode_matches_jax_on_served_layouts(hw):
+    """Channels-last heads as the int8 net hands them over (``nhwc``), a
+    channels-last hm beside NCHW hm3 and um as the float nets do
+    (``mixed``), and NHWC views of NCHW heads (``nchw``), the depth a
+    ``[::4, ::4]`` view of a full-size map in each: the plain decode gives
+    the same poses for every layout, and they match the jnp decode."""
+    scene = decode_scene(np.random.default_rng(hw), 4, hw, hw, 16)
+    want = jdecode.decode_poses(*(jnp.asarray(a) for a in scene),
+                                JEvalConfig())
+    got = {layout: decode.decode_poses(*as_served(scene, "cpu", layout))
+           for layout in ("nhwc", "nchw", "mixed")}
+    assert got["nhwc"]["xyz"].shape == (4, 48)
+    for key in ("normed", "candidates", "weights"):
+        for layout in ("nchw", "mixed"):
+            np.testing.assert_array_equal(got["nhwc"][key].numpy(),
+                                          got[layout][key].numpy())
+    np.testing.assert_allclose(got["nhwc"]["candidates"].numpy(),
+                               np.asarray(want["candidates"]), atol=1e-5)
+    np.testing.assert_allclose(got["nhwc"]["weights"].numpy(),
+                               np.asarray(want["weights"]), atol=1e-6)
+    np.testing.assert_allclose(got["nhwc"]["normed"].numpy(),
+                               np.asarray(want["normed"]), atol=2e-4)
+
+
+def test_plain_decode_matches_jax_on_edge_heads():
+    """The fused kernel's edge-case frames (chip_smoke.decode_edge_scene):
+    all weights 0, negative, scores all 0, a NaN and an infinite heatmap
+    pixel picked as a candidate whose weight it becomes. The NaN weight
+    keeps the cell-63 start, as in JAX; the infinite one gives NaN."""
+    scene = decode_edge_scene(np.random.default_rng(5), 8, 32, 32, 16)
+    want = jdecode.decode_poses(*(jnp.asarray(a) for a in scene),
+                                JEvalConfig())
+    got = decode.decode_poses(*(torch.from_numpy(a) for a in scene))
+    assert torch.isnan(got["weights"][3, 0, 0]) and torch.isinf(
+        got["weights"][4, 1, 0])
+    assert (got["weights"][1] <= 0).all() and (got["weights"][0] == 0).all()
+    np.testing.assert_array_equal(got["normed"][3, 0].numpy(),
+                                  [0.75, 0.75, 0.75])
+    assert torch.isnan(got["normed"][4, 1]).all()
+    np.testing.assert_allclose(got["normed"].numpy(),
+                               np.asarray(want["normed"]), atol=2e-4,
+                               equal_nan=True)
