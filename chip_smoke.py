@@ -35,18 +35,35 @@ Phases, each printed as one JSON line:
 6. ``kernel`` once more: the weighted mean shift (K2), which no serving
    path runs, on the candidates and weights of the serving path's heads and
    on the vote's edge cases.
+7. ``train``, the training path, with the kernels' counts zeroed just
+   before it: synthetic shards (``train_data``); one full-width step
+   (s2/f128/J16, 4 x 2, dropout 0, augmentation off, float32) on the card
+   against the CPU (``train_card_vs_cpu``); ``train()`` at full width with
+   the ``TrainConfig`` defaults (40 x 5) in float32 and bfloat16, 12 steps
+   each, validating with K1 every 5 and keeping the best, resumed for 3
+   more and served by ``Predictor.from_checkpoint``, with samples/s, the
+   step's split by CUDA events, the host's issue time beside the step's
+   and the device's busy share (profiler), peak memory and K1's launches
+   (``train``);
+   a fixed batch overfit for 30 steps (``train_overfit``).
 
-Then a ``kernels`` line, the card's ``nvidia-smi`` name and power limit, and
+Then a ``kernels`` line (``train_launches``: each kernel's launches in
+phase 7), the card's ``nvidia-smi`` name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or when any phase fails, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,6 +71,9 @@ import torch
 
 from densereg_torch import CameraConfig, NetConfig, Predictor
 from densereg_torch import decode
+from densereg_torch.config import TrainConfig, model_desc
+from densereg_torch.data import InputPipeline, synthetic
+from densereg_torch.data import TestPipeline as FramePipeline
 from densereg_torch.geometry import unnorm_xyz_pose
 from densereg_torch.models import (
     QTensor,
@@ -61,6 +81,7 @@ from densereg_torch.models import (
     calibrate,
     fold_batch_norm,
     from_flax,
+    init_train_variables,
     init_variables,
     quantize_weights,
 )
@@ -70,7 +91,14 @@ from densereg_torch.ops import _build
 from densereg_torch.ops import fused_decode as fd
 from densereg_torch.ops import int8_gemm as k3
 from densereg_torch.ops import meanshift as k2
-from densereg_torch.preprocess import center_of_mass, crop_from_bbx, norm_dm
+from densereg_torch.preprocess import (
+    _bbox_from_pose,
+    center_of_mass,
+    crop_from_bbx,
+    norm_dm,
+)
+from densereg_torch.train import create_train_state, train, train_step
+from densereg_torch.utils.profiling import PhaseTimer
 
 SEED = 0
 ICVL = CameraConfig(fx=241.42, fy=241.42, cx=160.0, cy=120.0, w=320.0,
@@ -85,6 +113,14 @@ K1_TOL = 6e-6        # normalized units (PARITY.md, fused-decode row)
 K2_TOL = 6e-6        # the same limit for the mean-shift stage alone
 HEAD_TOL = 1e-4      # per head element (PARITY.md, network row)
 XYZ_TOL_MM = 0.02    # decode's 2e-4 normalized bound (PARITY.md) in mm
+# one training step, card against CPU (the CPU tests' limits against JAX):
+# the loss, each parameter's averaged gradient by relative norm (the float32
+# reduction-order floor through the renorm backward) and the moving
+# statistics
+LOSS_RTOL = 2e-4
+GRAD_REL_TOL = 5e-2
+STATS_RTOL, STATS_ATOL = 2e-3, 2e-5
+TRAIN_STEPS, RESUME_STEPS = 12, 3
 # (batch, head h, head w, joints): the serving bucket of 256 at 128 input
 # first, then the other joint counts and the 256- and 512-input heads
 DECODE_SHAPES = [(256, 32, 32, 16), (8, 32, 32, 14), (8, 32, 32, 21),
@@ -1005,6 +1041,287 @@ def lone_frame_ms(pred: Predictor, frames: np.ndarray, bbxs: np.ndarray,
             "decode_share": dec / median_ms}
 
 
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def train_data(root: str, shards: int = 4, per_shard: int = 64):
+    """Synthetic training and validation shards (the port's
+    ``data/synthetic.py``), validation from another seed."""
+    t0 = time.perf_counter()
+    spec = synthetic.make_spec("training", directory=root, num_shards=shards,
+                               samples_per_shard=per_shard, seed=SEED)
+    val = synthetic.make_spec("validation", directory=root, num_shards=1,
+                              samples_per_shard=per_shard, seed=SEED + 1)
+    emit({"phase": "train_data", "train_frames": spec.exact_num,
+          "validation_frames": val.exact_num, "frame_hw": [240, 320],
+          "joints": spec.jnt_num, "seconds": time.perf_counter() - t0})
+    return spec, val
+
+
+def pose_crops(spec, n: int, input_hw, device):
+    """The first ``n`` frames of ``spec`` cropped around their poses
+    (``TestPipeline``), on ``device``."""
+    batch = next(iter(FramePipeline(spec, n, input_hw, device=device)))
+    return {k: v for k, v in batch.items() if k != "name"}
+
+
+def phase_train_card_vs_cpu(spec, net_cfg: NetConfig, device, sub: int = 2,
+                            b: int = 4):
+    """One training step at full width from the same training-init weights,
+    batch ``b`` x sub_batch ``sub``, dropout 0, augmentation off, float32
+    (TF32 off), on the card and on the CPU: the loss, every parameter's
+    averaged gradient (before the clip) and the moving statistics."""
+    cfg = dataclasses.replace(net_cfg, dropout_rate=0.0,
+                              compute_dtype="float32")
+    tcfg = TrainConfig(batch_size=b, sub_batch=sub, augment=False)
+    variables = init_train_variables(cfg, SEED)
+    crops = pose_crops(spec, sub * b, cfg.input_hw, "cpu")
+    batch = {k: v.reshape((sub, b) + tuple(v.shape[1:]))
+             for k, v in crops.items()}
+    out = {}
+    for dev in (device, "cpu"):
+        state = create_train_state(cfg, tcfg, 100.0, variables=variables,
+                                   device=dev)
+        t0 = time.perf_counter()
+        m = train_step(state, {k: v.to(dev) for k, v in batch.items()}, cfg,
+                       tcfg, with_grads=True)
+        loss = float(m["loss"])
+        out[dev] = (loss, {k: g.cpu().double() for k, g in m["grads"].items()},
+                    {k: v.cpu() for k, v in state.net.state_dict().items()
+                     if k.endswith((".mean", ".var"))},
+                    time.perf_counter() - t0)
+    (l_d, g_d, s_d, t_d), (l_c, g_c, s_c, t_c) = out[device], out["cpu"]
+    grad_rel = {k: float((g_d[k] - g).norm() / (g.norm() + 1e-30))
+                for k, g in g_c.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    stats_excess = max(float(((s_d[k] - v).abs()
+                               - (STATS_ATOL + STATS_RTOL * v.abs())).max())
+                       for k, v in s_c.items())
+    row = {"phase": "train_card_vs_cpu", "config": cfg.__dict__,
+           "batch": [sub, b], "loss_card": l_d, "loss_cpu": l_c,
+           "loss_rel_diff": abs(l_d - l_c) / abs(l_c),
+           "max_grad_rel_norm": grad_rel[worst], "worst_param": worst,
+           "median_grad_rel_norm": statistics.median(grad_rel.values()),
+           "params": len(grad_rel),
+           "stats_max_excess_over_tol": stats_excess,
+           "step_s": {"card_first_call": t_d, "cpu": t_c},
+           "tol": {"loss_rtol": LOSS_RTOL, "grad_rel_norm": GRAD_REL_TOL,
+                   "stats_rtol": STATS_RTOL, "stats_atol": STATS_ATOL}}
+    emit(row)
+    check(np.isfinite(l_d) and row["loss_rel_diff"] <= LOSS_RTOL,
+          f"train step card vs CPU: loss {l_d} vs {l_c}")
+    check(grad_rel[worst] <= GRAD_REL_TOL,
+          f"train step card vs CPU: gradient of {worst} off by "
+          f"{grad_rel[worst]} (relative norm)")
+    check(stats_excess <= 0.0, f"train step card vs CPU: moving statistics "
+                               f"off by {stats_excess} over the tolerance")
+    return row
+
+
+def step_split(state, spec, cfg: NetConfig, tcfg: TrainConfig, device,
+               steps: int = 3):
+    """Device milliseconds of a training step's phases (CUDA events), the
+    mean over ``steps`` steps after one more: the feed (pinned copy and
+    crop), augmentation and targets, forward and backward, the optimizer.
+    Returns the split and the last batch."""
+    pipe = InputPipeline(spec, tcfg.batch_size, tcfg.sub_batch,
+                         cfg.input_hw, seed=SEED + 5, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 5)
+    timer = PhaseTimer()
+    totals = {}
+    try:
+        it = iter(pipe)
+        for i in range(steps + 1):
+            torch.cuda.synchronize()
+            timer.start()
+            batch = next(it)
+            timer.mark("feed_preprocess")
+            train_step(state, batch, cfg, tcfg, gen, mark=timer.mark)
+            split = timer.split()
+            if i:
+                for k, v in split.items():
+                    totals[k] = totals.get(k, 0.0) + v / steps
+    finally:
+        pipe.close()
+    totals["step"] = sum(totals.values())
+    return totals, batch
+
+
+def step_profile(state, batch, cfg: NetConfig, tcfg: TrainConfig, device,
+                 reps: int = 3, top: int = 12):
+    """Whether the host holds a training step back: the host's time to
+    issue a step (the call returns before the device is done) beside the
+    step's time after a device sync, the median of ``reps``; then one step
+    under ``torch.profiler``: the device's busy time and share, its
+    activities (kernels and copies), and the device time by the operator
+    that launched it (top ``top``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 6)
+    step = lambda: train_step(state, batch, cfg, tcfg, gen)
+    step()
+    torch.cuda.synchronize()
+    host, wall = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy_us, activities, ops = 0.0, 0, {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += evt.time_range.elapsed_us()
+            activities += 1
+        elif evt.kernels:
+            ops[evt.name] = ops.get(evt.name, 0.0) + sum(
+                k.duration for k in evt.kernels) / 1e3
+    step_ms = statistics.median(wall) * 1e3
+    return {"step_ms": step_ms,
+            "host_issue_ms": statistics.median(host) * 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e3 / step_ms,
+            "device_activities": activities,
+            "by_operator_ms": dict(sorted(ops.items(),
+                                          key=lambda kv: -kv[1])[:top])}
+
+
+def pose_boxes(poses: torch.Tensor, cfg: CameraConfig, threshold: float):
+    """Serving boxes ``(b, 5)`` from poses: the trainer's pose crop box and
+    a fixed depth threshold."""
+    box = _bbox_from_pose(poses, cfg.as_array(), 20.0)
+    return torch.stack([v.float() for v in box]
+                       + [torch.full_like(box[0], threshold, dtype=torch.float32)],
+                       dim=-1).numpy()
+
+
+def phase_train_run(spec, val, net_cfg: NetConfig, dtype: str, root: str,
+                    device):
+    """``train()`` at full width with the ``TrainConfig`` defaults (40 x 5,
+    augmentation on, dropout 0.5) for ``TRAIN_STEPS`` steps, validating
+    every 5 and keeping the best; a resume from its last checkpoint for
+    ``RESUME_STEPS`` more; the checkpoint served by
+    ``Predictor.from_checkpoint``; then a step's split by CUDA events and
+    its profile (host issue time against step time, device busy share)."""
+    cfg = dataclasses.replace(net_cfg, compute_dtype=dtype)
+    tcfg = TrainConfig(base_dir=os.path.join(root, dtype), validate_every=5,
+                       keep_best=True, summary_every=1)
+    train_dir = os.path.join(tcfg.base_dir, model_desc(
+        spec.name, spec.subset, cfg, tcfg.augment))
+    quiet = lambda *_: None
+    fd.fused_decode.launches = 0
+    fd.fused_decode.launches_by_path = dict.fromkeys(fd.PATHS, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = train(spec, cfg, tcfg, val_spec=val, max_steps=TRAIN_STEPS,
+                      device=device, log_fn=quiet)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        resumed = train(spec, cfg, tcfg, val_spec=val,
+                        max_steps=TRAIN_STEPS + RESUME_STEPS, device=device,
+                        restore_step="auto", log_fn=quiet)
+    resume_s = time.perf_counter() - t0
+    with open(os.path.join(train_dir, "best.json")) as f:
+        best = json.load(f)
+
+    # serve the last checkpoint on a few validation frames
+    reader = val.readers()[0]
+    frames = reader["depth"][:8]
+    bbxs = pose_boxes(torch.from_numpy(reader["pose"][:8]), val.cfg,
+                      val.fixed_bg_threshold)
+    pred = Predictor.from_checkpoint(train_dir, cfg, val.cfg, max_batch=8,
+                                     device=device)
+    xyz = pred(frames, bbxs)
+    served_err = np.linalg.norm((xyz - reader["pose"][:8]).reshape(
+        8, -1, 3), axis=-1).max(axis=-1)
+    launches = {"fused_decode": fd.fused_decode.launches,
+                "fused_decode_by_path": dict(fd.fused_decode.launches_by_path)}
+    resumed_to = resumed.step
+
+    split, batch = step_split(resumed, spec, cfg, tcfg, device)
+    prof = step_profile(resumed, batch, cfg, tcfg, device)
+    secs = [r["sec_per_batch"] for r in rows if 2 <= r["step"] < TRAIN_STEPS]
+    samples = tcfg.batch_size * tcfg.sub_batch
+    losses = [r["loss"] for r in rows]
+    row = {"phase": "train", "compute_dtype": dtype, "config": cfg.__dict__,
+           "batch": [tcfg.sub_batch, tcfg.batch_size],
+           "samples_per_step": samples, "steps": len(rows),
+           "samples_per_s": samples / statistics.median(secs),
+           "step_s": secs, "split_ms": split, "profile": prof,
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "train_s": train_s,
+           "resumed_to_step": resumed_to, "resume_s": resume_s,
+           "best": best, "served_frames": len(xyz),
+           "served_max_joint_err_mm": served_err.tolist(),
+           "launches": launches}
+    emit(row)
+    check(all(np.isfinite(losses)) and len(rows) == TRAIN_STEPS,
+          f"train {dtype}: {len(rows)} steps, losses {losses}")
+    check(resumed_to == TRAIN_STEPS + RESUME_STEPS,
+          f"train {dtype}: resumed to step {resumed_to}")
+    check(xyz.shape == (8, 3 * cfg.num_joint) and bool(np.isfinite(xyz).all()),
+          f"train {dtype}: served xyz {xyz.shape} or non-finite")
+    check(launches["fused_decode"] > 0
+          and launches["fused_decode_by_path"]["strided"] == 0,
+          f"train {dtype}: fused_decode launches {launches}")
+    return row
+
+
+def phase_train_overfit(spec, net_cfg: NetConfig, device, b: int = 8,
+                        steps: int = 30):
+    """A fixed batch of ``b`` crops at full width (float32, augmentation
+    off) for ``steps`` steps: every loss finite, the last five below the
+    first on average."""
+    cfg = dataclasses.replace(net_cfg, compute_dtype="float32")
+    tcfg = TrainConfig(batch_size=b, sub_batch=1, augment=False)
+    state = create_train_state(cfg, tcfg, 1e6, device=device)
+    batch = {k: v[None] for k, v in pose_crops(spec, b, cfg.input_hw,
+                                               device).items()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    losses = [float(train_step(state, batch, cfg, tcfg, gen)["loss"])
+              for _ in range(steps)]
+    last5 = float(np.mean(losses[-5:]))
+    emit({"phase": "train_overfit", "batch": b, "steps": steps,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "last5_mean": last5, "loss_ratio": losses[-1] / losses[0],
+          "losses": losses})
+    check(all(np.isfinite(losses)), f"overfit: non-finite losses {losses}")
+    check(last5 < losses[0], f"overfit: last five {last5} not below the "
+                             f"first {losses[0]}")
+
+
+def phase_train(net_cfg: NetConfig, device):
+    """The training path on its own counts: data, one step card against
+    CPU, ``train()`` in float32 and bfloat16 with resume and serving, and
+    the overfit check. Returns K1's launches in the phase."""
+    with tempfile.TemporaryDirectory(prefix="densereg_train_") as root:
+        spec, val = train_data(os.path.join(root, "data"))
+        phase_train_card_vs_cpu(spec, net_cfg, device)
+        runs = [phase_train_run(spec, val, net_cfg, dtype, root, device)
+                for dtype in ("float32", "bfloat16")]
+        phase_train_overfit(spec, net_cfg, device)
+    by_path = dict.fromkeys(fd.PATHS, 0)
+    for r in runs:
+        for p, n in r["launches"]["fused_decode_by_path"].items():
+            by_path[p] += n
+    return {"fused_decode": sum(r["launches"]["fused_decode"] for r in runs),
+            "fused_decode_by_path": by_path}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -1034,6 +1351,18 @@ def main() -> int:
     k2_row = phase_kernel_meanshift(preds["float32"]._heads(
         torch.from_numpy(frames[:b]).cuda(), torch.from_numpy(bbxs[:b]).cuda()),
         preds["float32"].ecfg, "cuda")
+    del preds
+    torch.cuda.empty_cache()
+    # the training path, on counts of its own
+    k3.int8_gemm_requant.launches = 0
+    k2.weighted_mean_shift_cuda.launches = 0
+    train_launches = phase_train(net_cfg, "cuda")
+    train_launches.update(int8_gemm_requant=k3.int8_gemm_requant.launches,
+                          weighted_mean_shift=
+                          k2.weighted_mean_shift_cuda.launches)
+    check(train_launches["int8_gemm_requant"] == 0
+          and train_launches["weighted_mean_shift"] == 0,
+          f"the training path launched an off-path kernel: {train_launches}")
 
     # the serving bucket as the float nets (hm_pixels) and the int8 net
     # (pixels) hand it over
@@ -1046,6 +1375,8 @@ def main() -> int:
         "replaces": "densereg_tpu/ops/fused_decode.py:39",
         "launches": launches["fused_decode"],
         "launches_by_path": launches["fused_decode_by_path"],
+        "train_launches": train_launches["fused_decode"],
+        "train_launches_by_path": train_launches["fused_decode_by_path"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"],
         "device_ms_channels_last": int8_row["device_ms"],
@@ -1059,6 +1390,7 @@ def main() -> int:
         "source": "densereg_torch/csrc/int8_gemm.cu",
         "replaces": "densereg_tpu/ops/int8_gemm.py:35",
         "launches": launches["int8_gemm_requant"],
+        "train_launches": train_launches["int8_gemm_requant"],
         "max_abs_err": k3_total["max_abs_err"],
         "ms": k3_total["ms"], "device_ms": k3_total["device_ms"],
         "plain_ms": k3_total["plain_ms"],
@@ -1071,6 +1403,7 @@ def main() -> int:
         "includes": ["densereg_torch/csrc/vote_meanshift.cuh"],
         "replaces": "densereg_tpu/ops/meanshift_pallas.py:33",
         "launches": launches["weighted_mean_shift"],
+        "train_launches": train_launches["weighted_mean_shift"],
         "max_abs_err": k2_row["max_abs_err"],
         "ms": k2_row["ms"], "device_ms": k2_row["device_ms"],
         "host_us": k2_row["host_us"], "plain_ms": k2_row["plain_ms"],

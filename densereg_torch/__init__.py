@@ -1,8 +1,9 @@
 """densereg_torch: the PyTorch / CUDA port of densereg_tpu.
 
 The same system as ``densereg_tpu`` (crop, stacked-hourglass dense
-regression, vote decode), in PyTorch, with the TPU kernels rewritten by
-hand for NVIDIA Hopper under ``csrc/``. It imports neither JAX nor the JAX
+regression, vote decode, training in ``densereg_torch.train``), in
+PyTorch, with the TPU kernels rewritten by hand for NVIDIA Hopper under
+``csrc/``. It imports neither JAX nor the JAX
 package. Entry points run on CUDA unless given ``device="cpu"``.
 """
 

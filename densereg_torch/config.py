@@ -1,4 +1,5 @@
-"""Configuration of the PyTorch port: camera intrinsics, network and decode.
+"""Configuration of the PyTorch port: camera intrinsics, network, training
+and decode.
 
 Plain dataclasses mirroring ``densereg_tpu/config.py``; the constants are
 the reference preprocessing's (``config.py:39-48`` of the JAX package).
@@ -7,7 +8,7 @@ the reference preprocessing's (``config.py:39-48`` of the JAX package).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,6 +54,14 @@ class NetConfig:
     # models.quantize.quantize_weights): per-channel weights, per-tensor
     # activations, channels-last, every convolution on the int8 GEMM kernel
     quantize: bool = False
+    # training form: dropout after the ReLUs of um_fc1 and um_fc2, and the
+    # batch-renorm moving-statistics decay and schedule-clock step
+    dropout_rate: float = 0.5
+    bn_decay: float = 0.99
+    renorm_t_delta: float = 1e-5
+    # recompute the forward on the backward pass; not ported (a recomputed
+    # forward would update the renorm moving statistics a second time)
+    remat: bool = False
 
     @property
     def output_hw(self) -> Tuple[int, int]:
@@ -77,6 +86,38 @@ class NetConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization schedule and loop cadences: the fields of
+    ``densereg_tpu/config.py::TrainConfig`` that ``train.loop.train`` uses,
+    with the same defaults."""
+
+    batch_size: int = 40
+    sub_batch: int = 5            # gradient-accumulation micro steps
+    epochs: int = 80
+    init_lr: float = 1e-3
+    lr_decay_factor: float = 0.1
+    epochs_per_decay: int = 10
+    adam_beta1: float = 0.5
+    grad_clip_value: float = 0.2  # elementwise clip after averaging
+    weight_decay: float = 5e-4    # conv-kernel L2
+    loss_type: str = "l2"         # data term: "l2" (sum(x^2)/2) or "l1"
+    ema_decay: Optional[float] = None   # weight EMA; None = off
+    augment: bool = True
+    seed: int = 0
+    log_every: int = 5
+    summary_every: int = 20
+    validate_every: int = 40
+    checkpoint_every: int = 100
+    keep_checkpoints: Optional[int] = 5   # None keeps every checkpoint
+    # also keep the checkpoint with the best validation error in ckpt_best/
+    # (marker best.json), ranked on a fixed set of this many frames
+    keep_best: bool = False
+    best_score_frames: int = 64
+    base_dir: str = "./exp/train_cache/"
+    num_workers: int = 1          # producer threads of the input pipeline
+
+
+@dataclasses.dataclass(frozen=True)
 class EvalConfig:
     """Decode settings. On a CUDA tensor the decode always runs the fused
     kernel (``ops.fused_decode``); on a CPU tensor its plain version."""
@@ -85,3 +126,15 @@ class EvalConfig:
     mean_shift_iters: int = 10
     band_width: float = 0.4
     vote_grid: int = 4            # 4x4x4 quantized voting grid
+
+
+def model_desc(dataset_name: str, subset: str, net: NetConfig, augment: bool,
+               net_name: str = "um_v1") -> str:
+    """Checkpoint namespace ``<dataset>_<subset>_s<stack>_f<fea>[_in<size>]
+    [_daug]_<net>``, as the JAX package names it."""
+    desc = f"{dataset_name}_{subset}_s{net.num_stack}_f{net.num_fea}"
+    if net.input_hw[0] != 128:
+        desc += f"_in{net.input_hw[0]}"
+    if augment:
+        desc += "_daug"
+    return f"{desc}_{net_name}"

@@ -1,0 +1,209 @@
+"""Input pipelines: npz shards on the host, crop on the device.
+
+Mirrors the device-crop path of ``densereg_tpu/data/pipeline.py``. Producer
+threads assemble shuffled batches of raw full frames in numpy, the depth
+kept uint16 (2 bytes a pixel over the bus); the consumer pins them, copies
+them to ``device`` and runs the crop and center of mass there
+(``preprocess.preprocess_batch_from_pose``), in the layout of the training
+step's ``(sub_batch, batch, ...)`` axes.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+from densereg_torch.data.base import DatasetSpec
+from densereg_torch.preprocess import (
+    preprocess_batch_from_bbx,
+    preprocess_batch_from_pose,
+)
+
+
+def _load_frames(reader, idxs, spec: DatasetSpec):
+    """Depth ``(n, H, W, 1)`` in the shard's dtype, poses ``(n, 3j)``
+    float32, names and (where the shard has them) boxes ``(n, 5)``."""
+    depth = reader["depth"][idxs][..., None]
+    pose = reader["pose"][idxs].astype(np.float32)
+    if spec.pose_select is not None and pose.shape[-1] != spec.pose_dim:
+        pose = pose[:, spec.pose_select]
+    names = [str(n) for n in reader["name"][idxs]]
+    bbx = reader["bbx"][idxs].astype(np.float32) if reader.has_bbx else None
+    return depth, pose, names, bbx
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+class InputPipeline:
+    """Shuffled, endless training pipeline.
+
+    Yields dicts ``{dm, pose, cfg, com}`` of tensors on ``device`` with
+    leading axes ``(sub_batch, batch_size, ...)``: ``dm`` the cropped depth
+    in mm, float32. Producer ``i`` draws its shard and frame order from
+    ``np.random.default_rng(seed + 7919 i)``, as the JAX package's does;
+    with one producer the stream is a function of ``seed`` alone, and
+    ``skip`` drops its first ``skip`` batches without loading them (where a
+    resumed run picks the stream up).
+    """
+
+    def __init__(self, spec: DatasetSpec, batch_size: int, sub_batch: int = 1,
+                 input_hw=(128, 128), seed: int = 0, prefetch: int = 4,
+                 num_workers: int = 1, skip: int = 0, device="cuda"):
+        self.spec = spec
+        self.batch_size = batch_size
+        self.sub_batch = sub_batch
+        self.input_hw = tuple(input_hw)
+        self.device = torch.device(device)
+        self._cfg = spec.cfg.as_array(device=self.device)
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._threads = [
+            threading.Thread(target=self._producer,
+                             args=(np.random.default_rng(seed + 7919 * i),
+                                   skip),
+                             daemon=True)
+            for i in range(max(num_workers, 1))]
+        for t in self._threads:
+            t.start()
+
+    def _put(self, item) -> bool:
+        """Deliver ``item``, waiting while the queue is full; False once the
+        pipeline is closed."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=1.0)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _producer(self, rng: np.random.Generator, skip: int):
+        try:
+            readers = [r for r in self.spec.readers() if len(r) > 0]
+            need = self.batch_size * self.sub_batch
+            pool: List[Tuple[int, np.ndarray]] = []   # (reader, frames)
+            total = 0
+            while not self._stop.is_set():
+                for ri in rng.permutation(len(readers)):
+                    pool.append((ri, rng.permutation(len(readers[ri]))))
+                    total += len(pool[-1][1])
+                    while total >= need:
+                        take, left = [], need
+                        while left:
+                            ri_, idxs = pool[0]
+                            take.append((ri_, idxs[:left]))
+                            if len(idxs) > left:
+                                pool[0] = (ri_, idxs[left:])
+                            else:
+                                pool.pop(0)
+                            left -= len(take[-1][1])
+                        total -= need
+                        if skip:
+                            skip -= 1
+                            continue
+                        loaded = [_load_frames(readers[r], ix, self.spec)
+                                  for r, ix in take]
+                        item = (np.concatenate([x[0] for x in loaded]),
+                                np.concatenate([x[1] for x in loaded]))
+                        if not self._put(item):
+                            return
+                    if self._stop.is_set():
+                        return
+        except Exception as exc:   # handed to the consumer, which raises it
+            self._put(exc)
+
+    def __iter__(self) -> Iterator[dict]:
+        h, w = self.input_hw
+        sub, b = self.sub_batch, self.batch_size
+        while True:
+            item = self._q.get()
+            if isinstance(item, Exception):
+                raise RuntimeError("input pipeline producer failed") from item
+            dms, poses = item
+            dm, pose, cfgs, coms = preprocess_batch_from_pose(
+                _to_device(dms, self.device), _to_device(poses, self.device),
+                self._cfg, h, w, self.spec.fixed_bg_threshold)
+            yield {"dm": dm.reshape(sub, b, h, w, 1),
+                   "pose": pose.reshape(sub, b, -1),
+                   "cfg": cfgs.reshape(sub, b, 6),
+                   "com": coms.reshape(sub, b, 3)}
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        for t in self._threads:
+            t.join(timeout=10.0)
+
+
+class TestPipeline:
+    """Sequential single-pass pipeline yielding ``{dm, pose, cfg, com,
+    name}`` batches on ``device``: cropped around the pose, or from the
+    stored boxes where the spec uses them. The last batch is padded by
+    repeating its last frame, so every batch has ``batch_size`` frames."""
+
+    def __init__(self, spec: DatasetSpec, batch_size: int,
+                 input_hw=(128, 128), device="cuda"):
+        self.spec = spec
+        self.batch_size = batch_size
+        self.input_hw = tuple(input_hw)
+        self.device = torch.device(device)
+        self._cfg = spec.cfg.as_array(device=self.device)
+
+    def unique_readers(self):
+        """The non-empty shards in dataset order, each once."""
+        out, seen = [], set()
+        for reader in self.spec.readers():
+            if reader.path in seen or len(reader) == 0:
+                continue
+            seen.add(reader.path)
+            out.append(reader)
+        return out
+
+    def __iter__(self) -> Iterator[dict]:
+        bs = self.batch_size
+        buf_d, buf_p, buf_n, buf_b = [], [], [], []
+        for reader in self.unique_readers():
+            d, p, names, bbx = _load_frames(reader, np.arange(len(reader)),
+                                            self.spec)
+            for i in range(len(names)):
+                buf_d.append(d[i])
+                buf_p.append(p[i])
+                buf_n.append(names[i])
+                if bbx is not None:
+                    buf_b.append(bbx[i])
+                if len(buf_d) == bs:
+                    yield self._emit(buf_d, buf_p, buf_n, buf_b)
+                    buf_d, buf_p, buf_n, buf_b = [], [], [], []
+        if buf_d:
+            pad = bs - len(buf_d)
+            for buf in (buf_d, buf_p, buf_n) + ((buf_b,) if buf_b else ()):
+                buf.extend([buf[-1]] * pad)
+            yield self._emit(buf_d, buf_p, buf_n, buf_b)
+
+    def _emit(self, buf_d, buf_p, buf_n, buf_b) -> dict:
+        h, w = self.input_hw
+        dms = _to_device(np.stack(buf_d), self.device)
+        poses = _to_device(np.stack(buf_p), self.device)
+        if self.spec.uses_bbx and buf_b:
+            out = preprocess_batch_from_bbx(
+                dms, poses, _to_device(np.stack(buf_b), self.device),
+                self._cfg, h, w)
+        else:
+            out = preprocess_batch_from_pose(dms, poses, self._cfg, h, w,
+                                             self.spec.fixed_bg_threshold)
+        dm, pose, cfgs, coms = out
+        return {"dm": dm, "pose": pose, "cfg": cfgs, "com": coms,
+                "name": list(buf_n)}

@@ -1,7 +1,9 @@
 """Weights across the two packages: the JAX package's Flax variable tree
 (nested dicts of arrays, module names as ``densereg_tpu/models/hourglass.py``
-and ``layers.py`` write them) to a :class:`DenseRegNet`, and a seeded
-Flax-layout tree made without JAX.
+and ``layers.py`` write them) to a :class:`DenseRegNet` and back
+(:func:`to_flax`), and seeded Flax-layout trees made without JAX: one
+calibrated for serving tests (:func:`init_variables`), one drawn as the
+JAX package's training init (:func:`init_train_variables`).
 
 A Flax path ``stem_conv/conv/kernel`` is the torch state-dict key
 ``stem_conv.conv.kernel``; batch statistics ``batch_stats/<path>/bn/mean``
@@ -104,6 +106,60 @@ def from_flax(variables, net_cfg: NetConfig) -> DenseRegNet:
     return net.eval()
 
 
+def flax_tree(tensors) -> dict:
+    """A ``{state-dict key: tensor}`` mapping of a float :class:`DenseRegNet`
+    (its state dict, or gradients keyed like its parameters) as a Flax-layout
+    nested dict of float32 numpy arrays, kernels HWIO."""
+    flat = {}
+    for key, t in tensors.items():
+        val = t.detach().float().cpu().numpy().copy()
+        if key.endswith(".kernel"):
+            val = val.transpose(2, 3, 1, 0)
+        flat[key] = val
+    return _unflatten(flat)
+
+
+def to_flax(net: DenseRegNet) -> dict:
+    """The float (unquantized) net's weights as the JAX package's variables:
+    ``{"params", "batch_stats"}`` of numpy arrays (``{"params"}`` for a
+    folded net), the inverse of :func:`from_flax`."""
+    if net.cfg.quantize:
+        raise NotImplementedError("to_flax takes a float net")
+    stats = {k: v for k, v in net.state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    out = {"params": flax_tree(dict(net.named_parameters()))}
+    if not net.cfg.fold_bn:
+        out["batch_stats"] = flax_tree(stats)
+    return out
+
+
+def init_train_variables(net_cfg: NetConfig, seed: int = 0) -> dict:
+    """The JAX package's training init (``models/layers.py:135-158``) drawn
+    from a numpy seed, with no JAX: every kernel a standard normal truncated
+    to [-2, 2] times 0.01 (std about 0.0088), biases and beta 0, gamma 1,
+    moving mean 0 and variance 1. Returns ``{"params", "batch_stats"}`` in
+    Flax layout."""
+    rng = np.random.default_rng(seed)
+    net = DenseRegNet(dataclasses.replace(net_cfg, fold_bn=False,
+                                          quantize=False))
+    state = {}
+    for key, t in net.state_dict().items():
+        if key.endswith(".kernel"):
+            val = rng.standard_normal(tuple(t.shape))
+            while True:             # redraw what lies outside [-2, 2]
+                out = np.abs(val) > 2.0
+                if not out.any():
+                    break
+                val[out] = rng.standard_normal(int(out.sum()))
+            state[key] = torch.from_numpy((val * 0.01).astype(np.float32))
+        else:
+            state[key] = t          # zeros and ones as constructed
+    params = {k: v for k, v in state.items()
+              if not k.endswith((".mean", ".var"))}
+    stats = {k: v for k, v in state.items() if k.endswith((".mean", ".var"))}
+    return {"params": flax_tree(params), "batch_stats": flax_tree(stats)}
+
+
 def act_stats_to_flax(net: DenseRegNet) -> dict:
     """The recorded calibration statistics of an int8 net as the JAX
     package's ``act_stats`` collection: a nested dict of float32 scalars."""
@@ -149,7 +205,7 @@ def init_variables(net_cfg: NetConfig, seed: int = 0) -> dict:
     """
     rng = np.random.default_rng(seed)
     net = DenseRegNet(dataclasses.replace(net_cfg, fold_bn=False,
-                                          compute_dtype="float32"))
+                                          compute_dtype="float32")).eval()
     state = {}
     for key, t in net.state_dict().items():
         shape = tuple(t.shape)

@@ -1,15 +1,17 @@
-"""Stacked-hourglass dense-regression network ``um_v1``, eval form.
+"""Stacked-hourglass dense-regression network ``um_v1``, training and eval
+form.
 
 Mirrors ``densereg_tpu/models/hourglass.py`` module for module, with the
 same submodule names. Inside, the layout is NCHW; the public interface keeps
 the JAX package's: normalized depth ``(b, H, W, 1)`` in, per-stack lists of
 NHWC float32 heads out. Channel concatenations follow the NHWC order of the
-JAX net.
+JAX net. ``module.training`` selects the form: batch renorm on batch
+moments and dropout in training, the moving statistics in eval.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +27,36 @@ from densereg_torch.models.layers import (
 )
 
 
+def renorm_clip_schedule(t) -> Tuple[float, float]:
+    """The r/d clip schedule of batch renorm as a function of the schedule
+    clock ``t`` (advanced by ``NetConfig.renorm_t_delta`` a micro step),
+    evaluated in float32 as the JAX package does:
+
+        r_max = 3 / (1 + 2 e^{-t})          (1 -> 3)
+        d_max = 1e-3 * e^{2t}
+    """
+    t = torch.as_tensor(t, dtype=torch.float32).cpu()
+    r_max = 3.0 / (1.0 + 2.0 * torch.exp(-t))
+    d_max = 1e-3 * torch.exp(2.0 * t)
+    return float(r_max), float(d_max)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Keep each element with probability ``1 - rate`` and scale it by
+    ``1 / (1 - rate)`` (Flax's ``nn.Dropout``); the mask is drawn from
+    ``generator``, which lies on ``x``'s device (the default generator
+    when None)."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if keep == 0.0:
+        return torch.zeros_like(x)
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+
 class Hourglass(nn.Module):
     """Recursive hourglass: ``upper = res(x)``; ``lower = res(pool3x3/2(x))``
     -> recurse -> ``res`` -> nearest x2 upsample; sum (requantized in a
@@ -32,30 +64,32 @@ class Hourglass(nn.Module):
 
     def __init__(self, depth: int, ch: int, kernel_size: int = 3,
                  use_bn: bool = True, bn_epsilon: float = 1e-3,
-                 quantized: bool = False, dtype: torch.dtype = torch.float32):
+                 bn_decay: float = 0.99, quantized: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel_size = kernel_size
         self.quantized, self.dtype = quantized, dtype
         res = lambda: Residual(ch, kernel_size=kernel_size, use_bn=use_bn,
-                               bn_epsilon=bn_epsilon, quantized=quantized,
-                               dtype=dtype)
+                               bn_epsilon=bn_epsilon, bn_decay=bn_decay,
+                               quantized=quantized, dtype=dtype)
         self.upper = res()
         self.lower_in = res()
         self.inner = (Hourglass(depth - 1, ch, kernel_size, use_bn,
-                                bn_epsilon, quantized, dtype)
+                                bn_epsilon, bn_decay, quantized, dtype)
                       if depth > 1 else None)
         self.lower_out = res()
         if quantized:
             self.calibrating = False
             self.register_buffer("out_amax", None)
 
-    def forward(self, x):
+    def forward(self, x, r_max=None, d_max=None):
         q = self.quantized           # int8 runs NHWC
-        upper = self.upper(x)
-        lower = self.lower_in(max_pool_same(x, self.kernel_size, 2, q))
+        kw = dict(r_max=r_max, d_max=d_max)
+        upper = self.upper(x, **kw)
+        lower = self.lower_in(max_pool_same(x, self.kernel_size, 2, q), **kw)
         if self.inner is not None:
-            lower = self.inner(lower)
-        up = upsample_nearest_2x(self.lower_out(lower), q)
+            lower = self.inner(lower, **kw)
+        up = upsample_nearest_2x(self.lower_out(lower, **kw), q)
         if not q:
             return upper + up
         return quantize_output(self, as_float(upper) + as_float(up),
@@ -68,7 +102,9 @@ class DenseRegNet(nn.Module):
     one float32 NHWC tensor per stack, ``(b, H/4, W/4, J | J | 3J)``.
 
     Weights stay float32; every convolution runs in
-    ``cfg.compute_dtype``."""
+    ``cfg.compute_dtype``. In training mode (``net.train()``) batch renorm
+    takes the clip schedule ``r_max``/``d_max`` and dropout draws its masks
+    from ``generator``."""
 
     def __init__(self, cfg: NetConfig):
         super().__init__()
@@ -79,9 +115,15 @@ class DenseRegNet(nn.Module):
         if cfg.quantize and not cfg.fold_bn:
             raise ValueError("an int8 net is a folded one: set fold_bn "
                              "(models.quantize.quantized_net_config)")
+        if cfg.remat:
+            raise NotImplementedError(
+                "NetConfig.remat is not ported: a forward recomputed on the "
+                "backward pass would update the renorm moving statistics a "
+                "second time")
         self.cfg = cfg
         f, j = cfg.num_fea, cfg.num_joint
-        bn = dict(use_bn=not cfg.fold_bn, bn_epsilon=cfg.bn_epsilon)
+        bn = dict(use_bn=not cfg.fold_bn, bn_epsilon=cfg.bn_epsilon,
+                  bn_decay=cfg.bn_decay)
         if cfg.quantize:
             bn.update(quantized=True, dtype=cfg.torch_dtype)
         def conv(in_ch, out_ch, k, use, **kw):
@@ -125,17 +167,23 @@ class DenseRegNet(nn.Module):
             for name, mod in layers.items():
                 self.add_module(name + s, mod)
 
-    def forward(self, dms: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+    def forward(self, dms: torch.Tensor, r_max: Optional[float] = None,
+                d_max: Optional[float] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, List[torch.Tensor]]:
         if self.cfg.quantize:
             return self._forward_int8(dms)
         c = self.cfg
         dtype = c.torch_dtype
+        kw = dict(r_max=r_max, d_max=d_max)
+        drop = ((lambda t: dropout(t, c.dropout_rate, generator))
+                if self.training else (lambda t: t))
         x = dms.permute(0, 3, 1, 2).to(dtype)                 # (b, 1, H, W)
         b = x.shape[0]
 
-        y = self.stem_res1(self.stem_conv(x))
+        y = self.stem_res1(self.stem_conv(x, **kw), **kw)
         y = max_pool_same(y, 2, 2)
-        hg_in = self.stem_res3(self.stem_res2(y))
+        hg_in = self.stem_res3(self.stem_res2(y, **kw), **kw)
 
         out_h, out_w = c.output_hw
         # the head-grid depth (method-2 shrink) and normalized uv grid
@@ -150,18 +198,20 @@ class DenseRegNet(nn.Module):
         outs: Dict[str, List[torch.Tensor]] = {"hm": [], "hm3": [], "um": []}
         for i in range(c.num_stack):
             m = lambda name: getattr(self, f"{name}_s{i}")
-            hg = m("hg")(hg_in)
-            ll = m("ll_conv")(m("ll_res")(hg))
+            hg = m("hg")(hg_in, **kw)
+            ll = m("ll_conv")(m("ll_res")(hg, **kw), **kw)
             hm = m("hm_head")(ll)
-            hm3 = m("hm3_head")(m("hm3_res")(torch.cat([ll, uvd], dim=1)))
+            hm3 = m("hm3_head")(m("hm3_res")(torch.cat([ll, uvd], dim=1),
+                                             **kw))
 
             um_cat = torch.cat([hg, hm, hm3], dim=1)
-            um_in = m("um_resB")(m("um_resA")(um_cat))
+            um_in = m("um_resB")(m("um_resA")(um_cat, **kw), **kw)
             um_mask = torch.where(invalid, torch.zeros_like(um_cat), um_cat)
-            um_mask = m("umm_resB")(m("umm_resA")(um_mask))
-            comb = m("um_comb")(torch.cat([um_in, um_mask], dim=1))
+            um_mask = m("umm_resB")(m("umm_resA")(um_mask, **kw), **kw)
+            comb = m("um_comb")(torch.cat([um_in, um_mask], dim=1), **kw)
             comb = torch.cat([comb, uvd], dim=1)
-            um = m("um_head")(m("um_fc2")(m("um_fc1")(comb)))
+            um = drop(m("um_fc2")(drop(m("um_fc1")(comb))))
+            um = m("um_head")(um)
 
             for key, v in (("hm", hm), ("hm3", hm3), ("um", um)):
                 outs[key].append(v.float().permute(0, 2, 3, 1))

@@ -1,5 +1,5 @@
-"""Building blocks of the stacked hourglass, eval form: NCHW in float, NHWC
-in int8.
+"""Building blocks of the stacked hourglass: NCHW in float (training and
+eval form), NHWC in int8.
 
 Mirrors ``densereg_tpu/models/layers.py``. Parameter names follow the Flax
 tree (``conv/{kernel,bias}``, ``bn/{gamma,beta}`` with moving statistics
@@ -103,22 +103,57 @@ def quantize_output(mod: nn.Module, y: torch.Tensor, dtype: torch.dtype):
 
 
 class BatchRenorm(nn.Module):
-    """Batch renormalization in eval form: ``(x - mean) / sqrt(var + eps) *
-    gamma + beta`` in float32 with the moving statistics, cast back to the
-    input's dtype. (Training form waits for the training slice.)"""
+    """Batch renormalization (``densereg_tpu/models/layers.py::BatchRenorm``)
+    on NCHW, in float32, cast back to the input's dtype.
 
-    def __init__(self, channels: int, epsilon: float = 1e-3):
+    Eval (``module.training`` False): ``(x - mean) / sqrt(var + eps) * gamma
+    + beta`` with the moving statistics.
+
+    Training: the batch moments over (b, h, w), two-pass (the mean, then the
+    mean of squared deviations; biased), and
+
+        y = ((x - mu_B) / sigma_B * r + d) * gamma + beta
+        r = sg[clip(sigma_B / sigma_mov, 1/r_max, r_max)]
+        d = sg[clip((mu_B - mu_mov) / sigma_mov, -d_max, d_max)]
+
+    with ``r`` and ``d`` from the moving statistics as they stand before the
+    call (``r = 1``, ``d = 0`` without ``r_max``); the moving statistics then
+    move once, ``decay * moving + (1 - decay) * batch``, outside autograd.
+    """
+
+    def __init__(self, channels: int, epsilon: float = 1e-3,
+                 decay: float = 0.99):
         super().__init__()
         self.epsilon = epsilon
+        self.decay = decay
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x):
+    def forward(self, x, r_max=None, d_max=None):
         view = lambda t: t.float().view(1, -1, 1, 1)
-        y = (x.float() - view(self.mean)) / torch.sqrt(view(self.var)
-                                                      + self.epsilon)
+        xf = x.float()
+        if not self.training:
+            y = (xf - view(self.mean)) / torch.sqrt(view(self.var)
+                                                   + self.epsilon)
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.square(xf - mean.view(1, -1, 1, 1)).mean(dim=(0, 2, 3))
+            std = torch.sqrt(var + self.epsilon)
+            y = (xf - view(mean)) / view(std)
+            if r_max is not None:
+                with torch.no_grad():
+                    mov_std = torch.sqrt(self.var + self.epsilon)
+                    r = torch.clamp(std / mov_std, 1.0 / r_max, r_max)
+                    d = torch.clamp((mean - self.mean) / mov_std, -d_max,
+                                    d_max)
+                y = y * view(r) + view(d)
+            with torch.no_grad():
+                self.mean.copy_(self.decay * self.mean
+                                + (1.0 - self.decay) * mean)
+                self.var.copy_(self.decay * self.var
+                               + (1.0 - self.decay) * var)
         return (y * view(self.gamma) + view(self.beta)).to(x.dtype)
 
 
@@ -160,15 +195,16 @@ class ConvBR(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
                  stride: int = 1, use_bn: bool = True, relu: bool = True,
                  groups: int = 1, bn_epsilon: float = 1e-3,
-                 quantized: bool = False, out_use: str = "both",
-                 dtype: torch.dtype = torch.float32):
+                 bn_decay: float = 0.99, quantized: bool = False,
+                 out_use: str = "both", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.relu = relu
         self.quantized = quantized
         if not quantized:
             self.conv = Conv(in_ch, out_ch, kernel, stride,
                              use_bias=not use_bn, groups=groups)
-            self.bn = BatchRenorm(out_ch, bn_epsilon) if use_bn else None
+            self.bn = (BatchRenorm(out_ch, bn_epsilon, bn_decay) if use_bn
+                       else None)
             return
         if groups != 1 or use_bn:
             raise NotImplementedError(
@@ -187,12 +223,14 @@ class ConvBR(nn.Module):
         self._w = None          # kernel_q packed for K3 (pack_weight)
         self._w_key = None
 
-    def forward(self, x):
+    def forward(self, x, r_max=None, d_max=None):
+        """``r_max``/``d_max``: the renorm clip schedule of a training
+        forward (``models.hourglass.renorm_clip_schedule``)."""
         if self.quantized:
             return self._quantized_forward(x)
         x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, r_max, d_max)
         return F.relu(x) if self.relu else x
 
     def _packed_weight(self) -> torch.Tensor:
@@ -248,14 +286,15 @@ class Residual(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
                  kernel_size: int = 3, use_bn: bool = True,
-                 bn_epsilon: float = 1e-3, quantized: bool = False,
+                 bn_epsilon: float = 1e-3, bn_decay: float = 0.99,
+                 quantized: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         out_ch = in_ch if out_ch is None else out_ch
         half = in_ch // 2
         # int8: the inner convolutions feed convolutions, the last two the sum
         conv = lambda i, o, k, use: ConvBR(
-            i, o, k, use_bn=use_bn, bn_epsilon=bn_epsilon,
+            i, o, k, use_bn=use_bn, bn_epsilon=bn_epsilon, bn_decay=bn_decay,
             quantized=quantized, out_use=use, dtype=dtype)
         self.conv1 = conv(in_ch, half, 1, "q")
         self.conv2 = conv(half, half, kernel_size, "q")
@@ -267,9 +306,10 @@ class Residual(nn.Module):
             self.calibrating = False
             self.register_buffer("out_amax", None)
 
-    def forward(self, x):
-        y = self.conv3(self.conv2(self.conv1(x)))
-        s = x if self.shortcut is None else self.shortcut(x)
+    def forward(self, x, r_max=None, d_max=None):
+        kw = dict(r_max=r_max, d_max=d_max)
+        y = self.conv3(self.conv2(self.conv1(x, **kw), **kw), **kw)
+        s = x if self.shortcut is None else self.shortcut(x, **kw)
         if not self.quantized:
             return y + s
         # calibrated graphs requantize the sum, so the next layer reads int8

@@ -1,4 +1,5 @@
-"""Batched device-side preprocessing: crop, center of mass, depth
+"""Batched device-side preprocessing: crop (from stored boxes, or around
+the pose with the joint-depth background cull), center of mass, depth
 normalization, and the head-grid subsample.
 
 Mirrors ``densereg_tpu/preprocess.py``, with an explicit batch dimension in
@@ -10,8 +11,11 @@ device they lie on.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from densereg_torch import geometry
 from densereg_torch.config import D_RANGE
 
 
@@ -91,6 +95,92 @@ def _new_cfg(cfg, top, left, le, oh, ow, out_h: int, out_w: int):
         torch.full_like(ratio_x, out_w),
         torch.full_like(ratio_x, out_h),
     ], dim=-1)
+
+
+def _bbox_from_pose(poses: torch.Tensor, cfg: torch.Tensor, pad: float):
+    """Pose-driven boxes ``(top, left, bottom, right)``, each ``(b,)``
+    int32 (truncated toward zero): the joints' projected extent plus
+    ``pad`` pixels, held inside the frame and at least ``2 pad`` wide.
+
+    Args: poses (b, 3j) xyz mm; cfg (6,) intrinsics of the full frame.
+    """
+    b = poses.shape[0]
+    uvd = geometry.xyz2uvd(poses, cfg).reshape(b, -1, 3)
+    min_c = uvd.amin(dim=1)
+    max_c = uvd.amax(dim=1)
+    h, w = cfg[5], cfg[4]
+    top = torch.minimum((min_c[:, 1] - pad).clamp_min(0.0), h - 2 * pad)
+    left = torch.minimum((min_c[:, 0] - pad).clamp_min(0.0), w - 2 * pad)
+    bottom = torch.maximum(torch.minimum(max_c[:, 1] + pad, h),
+                           top + 2 * pad - 1)
+    right = torch.maximum(torch.minimum(max_c[:, 0] + pad, w),
+                          left + 2 * pad - 1)
+    return tuple(v.to(torch.int32) for v in (top, left, bottom, right))
+
+
+def crop_from_xyz_pose(dms: torch.Tensor, poses: torch.Tensor,
+                       cfg: torch.Tensor, out_h: int, out_w: int,
+                       pad: float = 20.0,
+                       fixed_bg_threshold: Optional[float] = None):
+    """Crop the hand around its pose, with the background cull: pixels at
+    or beyond ``min(joint depth > 100 mm) + 250`` (or a dataset's fixed
+    threshold) are zeroed. The joint depths are read at the clipped,
+    truncated joint projections.
+
+    Args:
+      dms: (b, H, W, 1) or (b, H, W) raw depth, mm (float32 or uint16).
+      poses: (b, 3j) xyz mm. cfg: (6,) intrinsics of the full frame.
+    Returns:
+      (cropped (b, out_h, out_w, 1) float32 mm, cfgs (b, 6)).
+    """
+    dms = dms.to(torch.float32)
+    if dms.ndim == 4:
+        dms = dms[..., 0]
+    cfg = cfg.to(torch.float32)
+    b, h_in, w_in = dms.shape
+    top, left, bottom, right = _bbox_from_pose(poses, cfg, pad)
+    cropped, le, oh, ow = _resample_crop(dms, top, left, bottom, right,
+                                         out_h, out_w)
+    if fixed_bg_threshold is not None:
+        d_th = torch.full((b,), float(fixed_bg_threshold),
+                          dtype=torch.float32, device=dms.device)
+    else:
+        uvd = geometry.xyz2uvd(poses, cfg).reshape(b, -1, 3)
+        uu = uvd[..., 0].to(torch.int32).clamp(0, w_in - 1)
+        vv = uvd[..., 1].to(torch.int32).clamp(0, h_in - 1)
+        dd = torch.gather(dms.reshape(b, -1), 1,
+                          (vv * w_in + uu).to(torch.int64))
+        dd = torch.where(dd > 100.0, dd, torch.full_like(dd, float("inf")))
+        d_th = dd.amin(dim=1) + 250.0
+    cropped = torch.where(cropped < d_th[:, None, None, None], cropped, 0.0)
+    return cropped, _new_cfg(cfg, top, left, le, oh, ow, out_h, out_w)
+
+
+def preprocess_batch_from_pose(dms: torch.Tensor, poses: torch.Tensor,
+                               cfg: torch.Tensor, out_h: int, out_w: int,
+                               fixed_bg_threshold: Optional[float] = None):
+    """Train-style preprocess of a batch: crop around the (ground-truth)
+    pose, then the center of mass, on the device the frames lie on.
+
+    Args: dms (b, H, W, 1) raw depth (uint16 or float32, cast on the
+      device); poses (b, 3j); cfg (6,).
+    Returns: (cropped (b, h, w, 1) mm, poses, cfgs (b, 6), coms (b, 3)).
+    """
+    poses = poses.to(torch.float32)
+    cropped, cfgs = crop_from_xyz_pose(dms, poses, cfg, out_h, out_w,
+                                       fixed_bg_threshold=fixed_bg_threshold)
+    return cropped, poses, cfgs, center_of_mass(cropped, cfgs)
+
+
+def preprocess_batch_from_bbx(dms: torch.Tensor, poses: torch.Tensor,
+                              bbxs: torch.Tensor, cfg: torch.Tensor,
+                              out_h: int, out_w: int):
+    """Test-style preprocess from stored boxes (NYU's test split): crop
+    from the boxes, then the center of mass. Returns as
+    :func:`preprocess_batch_from_pose`."""
+    cropped, cfgs = crop_from_bbx(dms, bbxs, cfg, out_h, out_w)
+    return cropped, poses.to(torch.float32), cfgs, center_of_mass(cropped,
+                                                                  cfgs)
 
 
 def crop_from_bbx(dms: torch.Tensor, bbxs: torch.Tensor, cfg: torch.Tensor,

@@ -15,12 +15,21 @@ of batch shapes. The port runs eagerly.
 
 from __future__ import annotations
 
+import dataclasses
+import os
+from typing import Optional
+
 import numpy as np
 import torch
 
 from densereg_torch import decode as decode_mod
 from densereg_torch.config import CameraConfig, EvalConfig, NetConfig
-from densereg_torch.models import fold_batch_norm, from_flax
+from densereg_torch.models import (
+    DenseRegNet,
+    fold_batch_norm,
+    from_flax,
+    to_flax,
+)
 from densereg_torch.models.bridge import is_folded, is_quantized
 from densereg_torch.models.quantize import calibrate, quantize_weights
 from densereg_torch.preprocess import (
@@ -51,7 +60,7 @@ class Predictor:
     ``compute_dtype`` is then the dtype of the float views between layers.
 
     Not ported yet, and refused with ``NotImplementedError``: multi-device
-    serving (``mesh``), :meth:`from_checkpoint` and :meth:`from_converted`.
+    serving (``mesh``) and :meth:`from_converted`.
     """
 
     # uint16 integer-mm frames are accepted natively and cast on the device
@@ -105,10 +114,32 @@ class Predictor:
             self.batch_buckets = (max_batch,)
 
     @classmethod
-    def from_checkpoint(cls, *args, **kwargs) -> "Predictor":
-        raise NotImplementedError(
-            "Predictor.from_checkpoint waits for the training slice of "
-            "densereg_torch (no torch checkpoint format exists yet)")
+    def from_checkpoint(cls, train_dir: str, net_cfg: NetConfig,
+                        camera: CameraConfig, step: Optional[int] = -1,
+                        use_ema: bool = False, use_best: bool = False,
+                        **kwargs) -> "Predictor":
+        """Serve a checkpoint of the port's trainer (``train.loop.train``):
+        ``train_dir`` is the run's directory, ``step`` a saved step (-1: the
+        latest), ``use_ema`` the EMA weights (a run trained with
+        ``TrainConfig.ema_decay``), ``use_best`` the best-validation
+        checkpoint (``train_dir/ckpt_best``, ``TrainConfig.keep_best``).
+        The weights go through the Flax layout (``models.to_flax``), so batch
+        norm is folded as for any tree; ``kwargs`` go to ``__init__``."""
+        from densereg_torch.train.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(os.path.join(
+            train_dir, "ckpt_best" if use_best else "ckpt"))
+        payload = mgr.load(step)
+        state = payload["net"]
+        if use_ema:
+            if payload["ema"] is None:
+                raise ValueError("checkpoint has no EMA weights; train with "
+                                 "TrainConfig.ema_decay")
+            state = {**state, **payload["ema"]}
+        net = DenseRegNet(dataclasses.replace(net_cfg, fold_bn=False,
+                                              quantize=False))
+        net.load_state_dict(state)
+        return cls(to_flax(net), net_cfg, camera, **kwargs)
 
     @classmethod
     def from_converted(cls, *args, **kwargs) -> "Predictor":

@@ -1,0 +1,311 @@
+"""The training loop: a host loop around the accumulating train step.
+
+Mirrors ``densereg_tpu/train/loop.py::train``: a text log line every
+``log_every`` steps (sec/batch, sec/sample), metrics every
+``summary_every``, a validation batch every ``validate_every`` (K1 decodes
+it on a CUDA device), a checkpoint every ``checkpoint_every`` and at the
+end; the NaN guard one step late, flushed before any checkpoint; SIGTERM
+checkpoints and stops; an exception leaves an emergency checkpoint;
+``restore_step="auto"`` resumes the latest checkpoint, with the input
+stream and the random generators where they were, so a stopped and
+resumed run takes the steps an uninterrupted one would. The checkpoint
+namespace is ``config.model_desc``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from densereg_torch.config import EvalConfig, NetConfig, TrainConfig, model_desc
+from densereg_torch.data.base import DatasetSpec
+from densereg_torch.data.pipeline import InputPipeline, TestPipeline
+from densereg_torch.eval.loop import make_infer_fn
+from densereg_torch.eval.metrics import max_joint_error
+from densereg_torch.train.checkpoint import CheckpointManager
+from densereg_torch.train.state import TrainState, create_train_state
+from densereg_torch.train.step import train_step
+from densereg_torch.utils.logging import MetricLogger, TrainLogWriter
+from densereg_torch.utils.profiling import StepTimer
+
+
+def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
+          val_spec: Optional[DatasetSpec] = None, restore_step=None,
+          max_steps: Optional[int] = None, net_name: str = "um_v1",
+          log_fn=print, device="cuda") -> TrainState:
+    """Train on ``spec`` on ``device``; returns the final state.
+
+    ``restore_step``: a step to resume from, ``"auto"`` for the latest
+    checkpoint when there is one, or None (or 0) for a fresh run. On CUDA a
+    float32 run turns TF32 off for the process, as serving does.
+    """
+    if val_spec is not None and val_spec.jnt_num != spec.jnt_num:
+        raise ValueError("validation dataset must share the joint count")
+    device = torch.device(device)
+    steps_per_epoch = spec.approximate_num / (tcfg.batch_size * tcfg.sub_batch)
+    if max_steps is None:
+        max_steps = int(tcfg.epochs * steps_per_epoch)
+    if device.type == "cuda" and net_cfg.compute_dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    name = model_desc(spec.name, spec.subset, net_cfg, tcfg.augment, net_name)
+    train_dir = os.path.join(tcfg.base_dir, name)
+    os.makedirs(train_dir, exist_ok=True)
+    ckpt = CheckpointManager(os.path.join(train_dir, "ckpt"),
+                             max_to_keep=tcfg.keep_checkpoints)
+
+    state = create_train_state(net_cfg, tcfg, steps_per_epoch, device=device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(tcfg.seed)
+    generators = {"train": generator}
+    if restore_step == "auto":
+        restore_step = ckpt.latest_step()
+        if restore_step is not None:
+            log_fn(f"[train] auto-resume from step {restore_step}")
+    if restore_step is not None and restore_step != 0:
+        ckpt.restore(state, restore_step, generators)
+        log_fn(f"[train] restored step {state.step} from {train_dir}")
+
+    log = TrainLogWriter(train_dir)
+    metrics_log = MetricLogger(os.path.join(train_dir, "metrics.jsonl"))
+    pipeline = InputPipeline(spec, tcfg.batch_size, tcfg.sub_batch,
+                             net_cfg.input_hw, seed=tcfg.seed,
+                             num_workers=tcfg.num_workers, skip=state.step,
+                             device=device)
+    infer_fn = val_iter = best_tracker = None
+    if val_spec is not None:
+        infer_fn = make_infer_fn(net_cfg, EvalConfig(), device=device)
+        val_iter = rotating_batches(TestPipeline(val_spec, 3,
+                                                 net_cfg.input_hw,
+                                                 device=device))
+        if tcfg.keep_best:
+            best_tracker = BestTracker(
+                val_spec, net_cfg.input_hw,
+                os.path.join(train_dir, "ckpt_best"),
+                os.path.join(train_dir, "best.json"),
+                n_frames=tcfg.best_score_frames, device=device)
+    elif tcfg.keep_best:
+        log_fn("[train] keep_best ignored: no validation split to rank by")
+
+    schedule = state.optimizer.schedule
+    log_fn(f"[train] lr decays per "
+           f"{int(steps_per_epoch * tcfg.epochs_per_decay)} steps "
+           f"x{tcfg.lr_decay_factor}; init lr {tcfg.init_lr}; {max_steps} "
+           f"total steps")
+    samples_per_step = tcfg.batch_size * tcfg.sub_batch
+    timer = StepTimer(device=device)
+    data_iter = iter(pipeline)
+
+    # SIGTERM asks for a checkpoint at the next step boundary, then a clean
+    # stop that restore_step="auto" resumes from
+    preempted = {"flag": False}
+    old_handler = None
+    if threading.current_thread() is threading.main_thread():
+        old_handler = signal.signal(
+            signal.SIGTERM, lambda *_: preempted.__setitem__("flag", True))
+
+    # Deferred NaN guard: step k's loss is copied to the host behind its
+    # step and checked after step k+1 is issued; it is flushed before any
+    # checkpoint, so a diverged state is never saved.
+    pending = None
+
+    def _guard(step_no, value):
+        if not np.isfinite(value):
+            raise FloatingPointError(
+                f"Model diverged with loss = {value} at step {step_no}")
+
+    def _defer(step_no, loss):
+        if device.type != "cuda":
+            return step_no, loss, None
+        host = torch.empty((), dtype=torch.float32, pin_memory=True)
+        host.copy_(loss, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return step_no, host, event
+
+    def _flush_guard():
+        nonlocal pending
+        if pending is not None:
+            step_no, value, event = pending
+            pending = None
+            if event is not None:
+                event.synchronize()
+            _guard(step_no, float(value))
+
+    try:
+        for step in range(state.step, max_steps):
+            sync = (step % tcfg.log_every == 0
+                    or step % tcfg.summary_every == 0
+                    or step % tcfg.checkpoint_every == 0
+                    or step + 1 == max_steps)
+            with timer:     # the feed included: it runs on the same stream
+                batch = next(data_iter)
+                metrics = train_step(state, batch, net_cfg, tcfg, generator)
+                _flush_guard()
+                if sync:
+                    loss = float(metrics["loss"])
+                    _guard(step, loss)
+                else:
+                    loss = None
+                    pending = _defer(step, metrics["loss"])
+
+            if step % tcfg.log_every == 0:
+                log.log_step(step, max_steps, loss, timer.last,
+                             timer.last / samples_per_step)
+            if step % tcfg.summary_every == 0:
+                metrics_log.log(step, learning_rate=schedule(step),
+                                sec_per_batch=timer.last,
+                                **{k: float(v) for k, v in metrics.items()})
+            if val_iter is not None and step % tcfg.validate_every == 0:
+                _validate(infer_fn, state, next(val_iter), log, step, log_fn)
+                if best_tracker is not None:
+                    best_tracker.maybe_update(infer_fn, state, log_fn,
+                                              pre_save=_flush_guard,
+                                              generators=generators)
+            if (step % tcfg.checkpoint_every == 0 or step + 1 == max_steps
+                    or preempted["flag"]):
+                _flush_guard()
+                ckpt.save(state, generators=generators)
+            if preempted["flag"]:
+                log.write(f"[train] SIGTERM: checkpointed step {state.step} "
+                          f"and stopping")
+                log_fn(f"[train] preempted at step {step}; resume with "
+                       f"restore_step='auto'")
+                break
+        _flush_guard()
+        return state
+    except (KeyboardInterrupt, FloatingPointError):
+        raise
+    except Exception:
+        # keep the live state, so that an auto-resume loses at most a step
+        try:
+            ckpt.save(state, generators=generators)
+            log.write(f"[train] emergency checkpoint at step {state.step}")
+        except Exception as exc:
+            log_fn(f"[train] emergency checkpoint failed: {exc!r}")
+        raise
+    finally:
+        if old_handler is not None:
+            signal.signal(signal.SIGTERM, old_handler)
+        pipeline.close()
+        log.close()
+        metrics_log.close()
+
+
+class BestTracker:
+    """The best-validation checkpoint (``TrainConfig.keep_best``).
+
+    Ranks on a fixed scoring set: the first ``n_frames`` validation frames
+    (fewer where the split has fewer), in batches of ``batch_size``, by the
+    mean of their max-joint errors. The best state is saved to
+    ``ckpt_dir`` (one kept), and ``best.json`` is written only once that
+    save has committed, so the marker never names a checkpoint that is not
+    on disk. The marker survives a resume."""
+
+    def __init__(self, val_spec: DatasetSpec, input_hw, ckpt_dir: str,
+                 marker_path: str, n_frames: int = 64, batch_size: int = 16,
+                 device="cuda"):
+        self.ckpt = CheckpointManager(ckpt_dir, max_to_keep=1)
+        self.marker_path = marker_path
+        self.n_frames = n_frames
+        self.batch_size = batch_size
+        self._pipe = TestPipeline(val_spec, batch_size, input_hw,
+                                  device=device)
+        self._exact = val_spec.exact_num
+        self._batches = None
+        self.best = {"err": float("inf"), "step": -1}
+        if os.path.exists(marker_path):
+            with open(marker_path) as f:
+                self.best = json.load(f)
+
+    def scoring_batches(self):
+        """``{dm, pose, cfg, com, valid}`` batches on the device; ``valid``
+        counts the real frames of a batch (not padding, not past
+        ``n_frames``)."""
+        if self._batches is None:
+            left = min(self.n_frames, self._exact)
+            self._batches = []
+            for b in self._pipe:
+                b = {k: v for k, v in b.items() if k != "name"}
+                b["valid"] = min(self.batch_size, left)
+                self._batches.append(b)
+                left -= b["valid"]
+                if left <= 0:
+                    break
+        return self._batches
+
+    def score(self, infer_fn, net) -> float:
+        """Mean max-joint error (mm) over the scoring set."""
+        errs = []
+        for b in self.scoring_batches():
+            xyz = infer_fn(net, b["dm"], b["cfg"], b["com"])
+            errs.append(max_joint_error(xyz, b["pose"])[:b["valid"]])
+        return float(torch.cat(errs).mean())
+
+    def maybe_update(self, infer_fn, state: TrainState, log_fn=print,
+                     pre_save=lambda: None, generators=None) -> float:
+        net = state.net
+        was_training = net.training
+        net.eval()
+        try:
+            err = self.score(infer_fn, net)
+        finally:
+            net.train(was_training)
+        if err < self.best["err"]:
+            pre_save()
+            self.ckpt.save(state, generators=generators)
+            self.best = {"err": err, "step": state.step,
+                         "frames": int(sum(b["valid"]
+                                           for b in self.scoring_batches()))}
+            tmp = self.marker_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(self.best, f)
+            os.replace(tmp, self.marker_path)
+            log_fn(f"[train] new best validation error {err:.3f} mm over "
+                   f"{self.best['frames']} frames at step {self.best['step']}")
+        return err
+
+
+def rotating_batches(pipeline):
+    """An endless stream cycling through a restartable pipeline; raises if
+    a whole pass yields nothing (an empty validation split)."""
+    while True:
+        empty = True
+        for batch in pipeline:
+            empty = False
+            yield batch
+        if empty:
+            raise RuntimeError("validation pipeline yielded no batches: "
+                               "empty or misconfigured split")
+
+
+def _validate(infer_fn, state: TrainState, batch, log: TrainLogWriter,
+              step: int, log_fn=print) -> float:
+    """One validation batch through the live net in eval form (the moving
+    statistics stay as they are): the per-joint error matrix to the
+    training log. Returns the mean max-joint error, mm."""
+    net = state.net
+    was_training = net.training
+    net.eval()
+    try:
+        xyz = infer_fn(net, batch["dm"], batch["cfg"], batch["com"])
+    finally:
+        net.train(was_training)
+    gt = batch["pose"]
+    errs = max_joint_error(xyz, gt).tolist()
+    diff = (xyz - gt).reshape(xyz.shape[0], -1, 3).cpu().numpy()
+    dist = np.linalg.norm(diff, axis=-1)
+    log.write(f"[validation] step {step}")
+    for i in range(diff.shape[0]):
+        log.write(np.array_str(np.concatenate([diff[i], dist[i][:, None]],
+                                              axis=1)))
+    log.write(f"validation error: {errs}")
+    log_fn(f"[validate] step {step} maxJntError {errs}")
+    return float(np.mean(errs))

@@ -46,6 +46,17 @@ def test_int8_and_meanshift_modules_are_checked(name):
         assert (PKG / "csrc" / (pathlib.Path(name).stem + ".cu")).is_file()
 
 
+@pytest.mark.parametrize("name", [
+    "targets.py", "augment.py", "preprocess.py", "train/losses.py",
+    "train/lr.py", "train/state.py", "train/step.py", "train/checkpoint.py",
+    "train/loop.py", "data/base.py", "data/synthetic.py", "data/pipeline.py",
+    "eval/metrics.py", "utils/logging.py", "utils/profiling.py"])
+def test_training_modules_are_checked(name):
+    """The training slice's modules exist where the import checks above
+    and below look."""
+    assert (PKG / name).is_file()
+
+
 def test_imports_with_jax_blocked():
     """Every module of the package imports in a process where importing
     JAX, Flax or the JAX package fails."""
@@ -70,10 +81,16 @@ def test_entry_points_default_to_cuda():
     import inspect
 
     from densereg_torch import Predictor
+    from densereg_torch.data import InputPipeline, TestPipeline
     from densereg_torch.eval import make_infer_fn
+    from densereg_torch.train import create_train_state, train
 
-    for fn in (Predictor.__init__, make_infer_fn):
+    for fn in (Predictor.__init__, make_infer_fn, train, create_train_state,
+               InputPipeline.__init__, TestPipeline.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # from_checkpoint hands its keywords, device included, to __init__
+    params = inspect.signature(Predictor.from_checkpoint).parameters
+    assert "device" not in params and "kwargs" in params
 
 
 def test_library_name_hashes_included_headers(tmp_path, monkeypatch):

@@ -129,7 +129,7 @@ def test_uint16_request_matches_float32(setup):
                                   ours(frames.astype(np.float32), bbxs))
 
 
-def test_buckets_and_unported_options(setup):
+def test_buckets_and_unported_options(setup, tmp_path):
     variables, _, _, ours, _ = setup
     assert ours.batch_buckets == (1, 4) and ours.accepts_u16
     assert ours.net_cfg.fold_bn
@@ -144,9 +144,13 @@ def test_buckets_and_unported_options(setup):
     # calibration without quantize is ignored, as in the JAX package
     assert not Predictor(variables, NetConfig(**SHAPE), ICVL, device="cpu",
                          calibration=(None, None)).net_cfg.quantize
-    for ctor in (Predictor.from_checkpoint, Predictor.from_converted):
-        with pytest.raises(NotImplementedError):
-            ctor("unused", NetConfig(**SHAPE), ICVL)
+    with pytest.raises(NotImplementedError):
+        Predictor.from_converted("unused", NetConfig(**SHAPE), ICVL)
+    # from_checkpoint is ported (tests/test_torch_train_loop.py): a run
+    # directory without checkpoints has nothing to serve
+    with pytest.raises(FileNotFoundError):
+        Predictor.from_checkpoint(str(tmp_path), NetConfig(**SHAPE), ICVL,
+                                  device="cpu")
 
 
 def test_make_infer_fn_matches_jax(setup):
