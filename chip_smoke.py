@@ -46,9 +46,21 @@ Phases, each printed as one JSON line:
    and the device's busy share (profiler), peak memory and K1's launches
    (``train``);
    a fixed batch overfit for 30 steps (``train_overfit``).
+8. ``eval``, the evaluation path, with the kernels' counts zeroed just
+   before it: 300 synthetic testing frames (``eval_data``; batch 40, so
+   the last batch is padded), stored once more with boxes as NYU's testing
+   subset stores them; a payload written by ``convert.save_converted``
+   from the seeded weights; the test driver ``train.loop.test`` on it
+   (float32, TF32 off), on the boxed copy (the box crop), and with
+   ``use_best`` on phase 7's float32 run; its result files checked (300
+   lines in shard order, 17 error-curve lines), the first 64 frames
+   against the same ``test()`` on the CPU, frames/s, one more call under
+   the profiler (the device's busy share), and K1's launches by staging
+   path (one a batch; K2 and K3 none).
 
-Then a ``kernels`` line (``train_launches``: each kernel's launches in
-phase 7), the card's ``nvidia-smi`` name and power limit, and
+Then a ``kernels`` line (``train_launches``, ``eval_launches``: each
+kernel's launches in phases 7 and 8), the card's ``nvidia-smi`` name and
+power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or when any phase fails, it exits non-zero and prints no result.
 """
@@ -57,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import io
 import json
 import os
@@ -69,11 +82,14 @@ import time
 import numpy as np
 import torch
 
-from densereg_torch import CameraConfig, NetConfig, Predictor
+from densereg_torch import CameraConfig, EvalConfig, NetConfig, Predictor
 from densereg_torch import decode
 from densereg_torch.config import TrainConfig, model_desc
-from densereg_torch.data import InputPipeline, synthetic
+from densereg_torch.convert import save_converted
+from densereg_torch.data import InputPipeline, ShardReader, ShardWriter
 from densereg_torch.data import TestPipeline as FramePipeline
+from densereg_torch.data import synthetic
+from densereg_torch.eval import read_result_file
 from densereg_torch.geometry import unnorm_xyz_pose
 from densereg_torch.models import (
     QTensor,
@@ -95,9 +111,11 @@ from densereg_torch.preprocess import (
     _bbox_from_pose,
     center_of_mass,
     crop_from_bbx,
+    method2_resize,
     norm_dm,
 )
 from densereg_torch.train import create_train_state, train, train_step
+from densereg_torch.train.loop import test as test_driver
 from densereg_torch.utils.profiling import PhaseTimer
 
 SEED = 0
@@ -113,6 +131,7 @@ K1_TOL = 6e-6        # normalized units (PARITY.md, fused-decode row)
 K2_TOL = 6e-6        # the same limit for the mean-shift stage alone
 HEAD_TOL = 1e-4      # per head element (PARITY.md, network row)
 XYZ_TOL_MM = 0.02    # decode's 2e-4 normalized bound (PARITY.md) in mm
+RESULT_ROUNDING_MM = 1e-4   # the result file's %.4f
 # one training step, card against CPU (the CPU tests' limits against JAX):
 # the loss, each parameter's averaged gradient by relative norm (the float32
 # reduction-order floor through the renorm backward) and the moving
@@ -1175,6 +1194,16 @@ def step_profile(state, batch, cfg: NetConfig, tcfg: TrainConfig, device,
                              ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
+    step_ms = statistics.median(wall) * 1e3
+    return {"step_ms": step_ms,
+            "host_issue_ms": statistics.median(host) * 1e3,
+            **device_time(prof, step_ms, top)}
+
+
+def device_time(prof, wall_ms: float, top: int):
+    """From a ``torch.profiler`` trace: the device's busy time and its
+    share of ``wall_ms``, its activities (kernels and copies), and the
+    device time by the operator that launched it (top ``top``)."""
     busy_us, activities, ops = 0.0, 0, {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -1183,11 +1212,8 @@ def step_profile(state, batch, cfg: NetConfig, tcfg: TrainConfig, device,
         elif evt.kernels:
             ops[evt.name] = ops.get(evt.name, 0.0) + sum(
                 k.duration for k in evt.kernels) / 1e3
-    step_ms = statistics.median(wall) * 1e3
-    return {"step_ms": step_ms,
-            "host_issue_ms": statistics.median(host) * 1e3,
-            "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / 1e3 / step_ms,
+    return {"device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e3 / wall_ms,
             "device_activities": activities,
             "by_operator_ms": dict(sorted(ops.items(),
                                           key=lambda kv: -kv[1])[:top])}
@@ -1304,22 +1330,214 @@ def phase_train_overfit(spec, net_cfg: NetConfig, device, b: int = 8,
                              f"first {losses[0]}")
 
 
-def phase_train(net_cfg: NetConfig, device):
+def phase_train(net_cfg: NetConfig, device, root: str):
     """The training path on its own counts: data, one step card against
     CPU, ``train()`` in float32 and bfloat16 with resume and serving, and
-    the overfit check. Returns K1's launches in the phase."""
-    with tempfile.TemporaryDirectory(prefix="densereg_train_") as root:
-        spec, val = train_data(os.path.join(root, "data"))
-        phase_train_card_vs_cpu(spec, net_cfg, device)
-        runs = [phase_train_run(spec, val, net_cfg, dtype, root, device)
-                for dtype in ("float32", "bfloat16")]
-        phase_train_overfit(spec, net_cfg, device)
+    the overfit check, in ``root`` (the runs stay for the eval phase).
+    Returns K1's launches in the phase."""
+    spec, val = train_data(os.path.join(root, "data"))
+    phase_train_card_vs_cpu(spec, net_cfg, device)
+    runs = [phase_train_run(spec, val, net_cfg, dtype, root, device)
+            for dtype in ("float32", "bfloat16")]
+    phase_train_overfit(spec, net_cfg, device)
     by_path = dict.fromkeys(fd.PATHS, 0)
     for r in runs:
         for p, n in r["launches"]["fused_decode_by_path"].items():
             by_path[p] += n
     return {"fused_decode": sum(r["launches"]["fused_decode"] for r in runs),
             "fused_decode_by_path": by_path}
+
+
+# --------------------------------------------------------------------------
+# evaluation
+# --------------------------------------------------------------------------
+
+def eval_data(root: str, shards: int = 4, per_shard: int = 75):
+    """Synthetic testing shards (the port's ``data/synthetic.py``), and the
+    same frames stored with boxes around their poses (``uses_bbx``, as
+    NYU's testing subset stores its frames), so that the test pipeline
+    crops from the boxes."""
+    t0 = time.perf_counter()
+    spec = synthetic.make_spec("testing", directory=root, num_shards=shards,
+                               samples_per_shard=per_shard, seed=SEED)
+    boxed = []
+    for path in spec.filenames:
+        reader = ShardReader(path)
+        bbxs = pose_boxes(torch.from_numpy(reader["pose"]), spec.cfg, 600.0)
+        boxed.append(path.replace(os.sep + "testing" + os.sep,
+                                  os.sep + "testing_boxed" + os.sep))
+        with ShardWriter(boxed[-1]) as w:
+            for d, p, n, b in zip(reader["depth"], reader["pose"],
+                                  reader["name"], bbxs):
+                w.add(d, p, str(n), b)
+    boxed = dataclasses.replace(spec, filenames=boxed, uses_bbx=True)
+    emit({"phase": "eval_data", "frames": spec.exact_num,
+          "batch": EvalConfig().batch_size, "frame_hw": [240, 320],
+          "joints": spec.jnt_num, "seconds": time.perf_counter() - t0})
+    return spec, boxed
+
+
+def run_test(spec, cfg: NetConfig, base_dir: str, device,
+             ecfg: EvalConfig = EvalConfig(), **kw):
+    """``train.loop.test`` into ``base_dir``'s run directory, which must
+    hold no other result. Returns the report with the host seconds, the
+    result file's names and xyz, and the error curve's rows."""
+    t0 = time.perf_counter()
+    report = test_driver(spec, cfg, TrainConfig(base_dir=base_dir), ecfg,
+                         log_fn=lambda *_: None, device=device, **kw)
+    report = {**report, "seconds": time.perf_counter() - t0}
+    run = os.path.join(base_dir, model_desc(spec.name, "training", cfg, True))
+    (res,) = glob.glob(os.path.join(run, f"{spec.subset}-*-result.txt"))
+    (err,) = glob.glob(os.path.join(run, f"{spec.subset}-*-result_error.txt"))
+    names, xyz = read_result_file(res)
+    with open(err) as f:
+        curve = [line.split() for line in f]
+    return report, names, xyz, curve
+
+
+def eval_profile(spec, cfg: NetConfig, base_dir: str, device, top: int = 10,
+                 **kw):
+    """One more ``test()`` call under ``torch.profiler``: its host time,
+    and the device's busy time and share of it (``device_time``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        report = run_test(spec, cfg, base_dir, device, **kw)[0]
+    wall_ms = report["seconds"] * 1e3
+    return {"wall_ms": wall_ms, **device_time(prof, wall_ms, top)}
+
+
+def eval_heads(net, spec, n: int, device):
+    """The decode's inputs for the first ``n`` frames of ``spec``, as
+    ``test()`` computes them, on the CPU."""
+    out_h, out_w = net.cfg.output_hw
+    parts = []
+    with torch.inference_mode():
+        for batch in FramePipeline(spec, EvalConfig().batch_size,
+                                   net.cfg.input_hw, device=device):
+            normed = norm_dm(batch["dm"], batch["com"])
+            outs = net(normed)
+            tiny = method2_resize(normed, out_h, out_w)
+            parts.append(tuple(t.cpu() for t in (
+                outs["hm"][-1], outs["hm3"][-1], outs["um"][-1], tiny,
+                batch["cfg"], batch["com"])))
+            if sum(len(p[0]) for p in parts) >= n:
+                break
+    return tuple(torch.cat(ts)[:n] for ts in zip(*parts))
+
+
+def decode_cancelled(heads, ecfg):
+    """Per (frame, joint): whether the plain decode's mean shift cancelled
+    on these heads (CPU tensors): a negative candidate weight, and the
+    estimate outside the box of the candidates that carry weight. A
+    positive weighted mean stays inside that box; a cancelled one divides by
+    a sum near 0, which amplifies differences as small as the heads'
+    rounding (seeded weights give such heads; PERF.md, PR 6)."""
+    normed, cans, weights = decode.decode_plain(*heads, ecfg)
+    live = (weights != 0)[..., None]
+    lo = torch.where(live, cans, torch.inf).amin(dim=-2)
+    hi = torch.where(live, cans, -torch.inf).amax(dim=-2)
+    outside = ((normed < lo) | (normed > hi)).any(dim=-1)
+    return (weights < 0).any(dim=-1) & outside
+
+
+def eval_card_vs_cpu(xyz_card, xyz_cpu, variables, net_cfg: NetConfig, spec,
+                     device):
+    """The card's result lines against the CPU's, under ``card_vs_cpu``'s
+    rule (a joint may be off by more than the decode's bound, plus the
+    result file's rounding, only where the plain decode crosses a
+    discontinuity between the two devices' heads) and one more cause: a
+    mean shift that cancelled on either device's heads
+    (``decode_cancelled``). The off joints are listed with their causes."""
+    n = len(xyz_cpu)
+    gap = np.abs(xyz_card[:n] - xyz_cpu).reshape(n, -1, 3).max(axis=-1)
+    off = gap > XYZ_TOL_MM + RESULT_ROUNDING_MM
+    flips = cancelled = np.zeros_like(off)
+    if off.any():
+        heads = [eval_heads(from_flax(variables, net_cfg).to(d), spec, n, d)
+                 for d in (device, "cpu")]
+        ecfg = EvalConfig()
+        flips = decode_flips(heads[1], heads[0], ecfg).numpy()
+        cancelled = (decode_cancelled(heads[0], ecfg)
+                     | decode_cancelled(heads[1], ecfg)).numpy()
+    return {"frames": n, "joints": int(off.size), "max_mm": float(gap.max()),
+            "joints_off": int(off.sum()),
+            "joints_at_a_decode_flip": int(flips.sum()),
+            "joints_at_a_cancelled_mean_shift": int(cancelled.sum()),
+            "joints_off_without_a_flip": int((off & ~flips).sum()),
+            "joints_off_unexplained": int((off & ~flips & ~cancelled).sum()),
+            "off": [[int(f), int(j), float(gap[f, j]), bool(flips[f, j]),
+                     bool(cancelled[f, j])] for f, j in np.argwhere(off)]}
+
+
+def phase_eval(variables, net_cfg: NetConfig, device, root: str,
+               train_root: str, smi: str, n_cpu: int = 64):
+    """The evaluation path on its own counts (see the module's docstring).
+    Returns the kernels' launches in the phase."""
+    t0 = time.perf_counter()
+    spec, boxed = eval_data(os.path.join(root, "data"))
+    payload = os.path.join(root, "params.msgpack")
+    save_converted({**variables, "renorm_t": 0.0}, payload)
+    fd.fused_decode.launches = 0
+    fd.fused_decode.launches_by_path = dict.fromkeys(fd.PATHS, 0)
+    k3.int8_gemm_requant.launches = 0
+    k2.weighted_mean_shift_cuda.launches = 0
+    runs = {
+        "init_params": run_test(spec, net_cfg, os.path.join(root, "card"),
+                                device, init_params=payload),
+        "boxes": run_test(boxed, net_cfg, os.path.join(root, "boxes"),
+                          device, init_params=payload),
+        "use_best": run_test(spec, net_cfg, os.path.join(train_root,
+                                                         "float32"),
+                             device, use_best=True)}
+    launches = {"fused_decode": fd.fused_decode.launches,
+                "fused_decode_by_path": dict(fd.fused_decode.launches_by_path),
+                "int8_gemm_requant": k3.int8_gemm_requant.launches,
+                "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches}
+    prof = eval_profile(spec, net_cfg, os.path.join(root, "profiled"), device,
+                        init_params=payload)
+
+    want_names = [str(n).replace("/", "\\") for f in spec.filenames
+                  for n in ShardReader(f)["name"]]
+    cpu = run_test(dataclasses.replace(spec, exact_num=n_cpu), net_cfg,
+                   os.path.join(root, "cpu"), "cpu", init_params=payload)
+    vs_cpu = eval_card_vs_cpu(runs["init_params"][2], cpu[2], variables,
+                              net_cfg, spec, device)
+    batches = -(-spec.exact_num // EvalConfig().batch_size)
+    row = {"phase": "eval", "frames": spec.exact_num,
+           "batch": EvalConfig().batch_size, "batches": batches,
+           "config": net_cfg.__dict__,
+           **{name: {"frames_per_s": r[0]["fps"], "seconds": r[0]["seconds"],
+                     "num_frames": r[0]["num_frames"],
+                     "percentages": r[0]["percentages"],
+                     "result_lines": len(r[1]), "curve_lines": len(r[3])}
+              for name, r in runs.items()},
+           "profile": prof, "card_vs_cpu": vs_cpu,
+           "cpu_seconds": cpu[0]["seconds"],
+           "launches": launches, "nvidia_smi": smi,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    for name, (report, names, xyz, curve) in runs.items():
+        check(report["num_frames"] == spec.exact_num and names == want_names
+              and xyz.shape == (spec.exact_num, 3 * net_cfg.num_joint)
+              and bool(np.isfinite(xyz).all()),
+              f"eval {name}: {len(names)} result lines, in shard order: "
+              f"{names == want_names}, xyz {xyz.shape}")
+        check(len(curve) == 17, f"eval {name}: {len(curve)} curve lines")
+    check(cpu[1] == want_names[:n_cpu], "eval on the CPU: names")
+    check(vs_cpu["joints_off_unexplained"] == 0,
+          f"eval card vs CPU: {vs_cpu['joints_off_unexplained']} joints "
+          f"off by more than {XYZ_TOL_MM + RESULT_ROUNDING_MM} mm with no "
+          f"decode flip and no cancelled mean shift: {vs_cpu['off']}")
+    check(launches["fused_decode"] == len(runs) * batches
+          and launches["fused_decode_by_path"]["hm_pixels"]
+          == launches["fused_decode"],
+          f"eval: K1 launched {launches}, not once a batch on hm_pixels")
+    check(launches["int8_gemm_requant"] == 0
+          and launches["weighted_mean_shift"] == 0,
+          f"the evaluation path launched an off-path kernel: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -1353,16 +1571,23 @@ def main() -> int:
         preds["float32"].ecfg, "cuda")
     del preds
     torch.cuda.empty_cache()
-    # the training path, on counts of its own
-    k3.int8_gemm_requant.launches = 0
-    k2.weighted_mean_shift_cuda.launches = 0
-    train_launches = phase_train(net_cfg, "cuda")
-    train_launches.update(int8_gemm_requant=k3.int8_gemm_requant.launches,
-                          weighted_mean_shift=
-                          k2.weighted_mean_shift_cuda.launches)
-    check(train_launches["int8_gemm_requant"] == 0
-          and train_launches["weighted_mean_shift"] == 0,
-          f"the training path launched an off-path kernel: {train_launches}")
+    with tempfile.TemporaryDirectory(prefix="densereg_") as root:
+        # the training path, on counts of its own
+        k3.int8_gemm_requant.launches = 0
+        k2.weighted_mean_shift_cuda.launches = 0
+        train_root = os.path.join(root, "train")
+        train_launches = phase_train(net_cfg, "cuda", train_root)
+        train_launches.update(
+            int8_gemm_requant=k3.int8_gemm_requant.launches,
+            weighted_mean_shift=k2.weighted_mean_shift_cuda.launches)
+        check(train_launches["int8_gemm_requant"] == 0
+              and train_launches["weighted_mean_shift"] == 0,
+              f"the training path launched an off-path kernel: "
+              f"{train_launches}")
+        # the evaluation path, on counts of its own
+        eval_launches = phase_eval(variables, net_cfg, "cuda",
+                                   os.path.join(root, "eval"), train_root,
+                                   smi)
 
     # the serving bucket as the float nets (hm_pixels) and the int8 net
     # (pixels) hand it over
@@ -1377,6 +1602,8 @@ def main() -> int:
         "launches_by_path": launches["fused_decode_by_path"],
         "train_launches": train_launches["fused_decode"],
         "train_launches_by_path": train_launches["fused_decode_by_path"],
+        "eval_launches": eval_launches["fused_decode"],
+        "eval_launches_by_path": eval_launches["fused_decode_by_path"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"],
         "device_ms_channels_last": int8_row["device_ms"],
@@ -1391,6 +1618,8 @@ def main() -> int:
         "replaces": "densereg_tpu/ops/int8_gemm.py:35",
         "launches": launches["int8_gemm_requant"],
         "train_launches": train_launches["int8_gemm_requant"],
+        "eval_launches": eval_launches["int8_gemm_requant"],
+        "eval_launches_by_path": None,
         "max_abs_err": k3_total["max_abs_err"],
         "ms": k3_total["ms"], "device_ms": k3_total["device_ms"],
         "plain_ms": k3_total["plain_ms"],
@@ -1404,6 +1633,8 @@ def main() -> int:
         "replaces": "densereg_tpu/ops/meanshift_pallas.py:33",
         "launches": launches["weighted_mean_shift"],
         "train_launches": train_launches["weighted_mean_shift"],
+        "eval_launches": eval_launches["weighted_mean_shift"],
+        "eval_launches_by_path": None,
         "max_abs_err": k2_row["max_abs_err"],
         "ms": k2_row["ms"], "device_ms": k2_row["device_ms"],
         "host_us": k2_row["host_us"], "plain_ms": k2_row["plain_ms"],

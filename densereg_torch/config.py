@@ -119,9 +119,11 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
-    """Decode settings. On a CUDA tensor the decode always runs the fused
-    kernel (``ops.fused_decode``); on a CPU tensor its plain version."""
+    """Evaluation batch size and decode settings. On a CUDA tensor the
+    decode always runs the fused kernel (``ops.fused_decode``); on a CPU
+    tensor its plain version."""
 
+    batch_size: int = 40          # frames a batch of the test driver
     num_candidates: int = 5
     mean_shift_iters: int = 10
     band_width: float = 0.4

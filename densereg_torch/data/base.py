@@ -172,9 +172,14 @@ def register_dataset(name: str):
 
 
 def get_dataset(name: str, subset: str, **kwargs) -> DatasetSpec:
-    """Registry dispatch. The port has the synthetic dataset; the readers
-    of ICVL, NYU, MSRA and BigHand are not ported yet."""
-    import densereg_torch.data.synthetic  # noqa: F401  (register on import)
+    """Registry dispatch, the equivalent of the reference CLI's dataset
+    if/elif ladder (reference model/hourglass_um_crop_tiny.py:885-905).
+    ``name`` in {icvl, nyu, msra, bighand, synthetic}."""
+    import densereg_torch.data.icvl  # noqa: F401  (register on import)
+    import densereg_torch.data.nyu  # noqa: F401
+    import densereg_torch.data.msra  # noqa: F401
+    import densereg_torch.data.bighand  # noqa: F401
+    import densereg_torch.data.synthetic  # noqa: F401
     if name not in _REGISTRY:
         raise ValueError(f"unknown dataset {name!r}; densereg_torch has "
                          f"{sorted(_REGISTRY)}")

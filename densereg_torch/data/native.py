@@ -1,0 +1,106 @@
+"""ctypes binding for the native depthio codec (native/depthio.cc), a
+copy of ``densereg_tpu/data/native.py`` bound to the same ``native/``
+directory and library.
+
+Builds ``libdepthio.so`` on demand with ``make`` (g++ + zlib only) and falls
+back to the PIL path in :mod:`densereg_torch.data.png16` when unavailable —
+callers never need to care.  The batch API decodes frames on a C++ thread
+pool with the GIL released (ctypes drops it for the call), which is what the
+single-threaded PIL loop in the converters cannot do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+from typing import List, Optional
+
+import numpy as np
+
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libdepthio.so")
+
+_lib = None
+_lock = threading.Lock()
+_build_failed = False
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib, _build_failed
+    if _lib is not None or _build_failed:
+        return _lib
+    with _lock:
+        if _lib is not None or _build_failed:
+            return _lib
+        if not os.path.exists(_LIB_PATH):
+            try:
+                subprocess.run(["make", "-C", _NATIVE_DIR, "-s"], check=True,
+                               capture_output=True, timeout=120)
+            except Exception:
+                _build_failed = True
+                return None
+        try:
+            lib = ctypes.CDLL(_LIB_PATH)
+        except OSError:
+            _build_failed = True
+            return None
+        lib.depthio_decode_png.restype = ctypes.c_int
+        lib.depthio_decode_png.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_uint16),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.depthio_decode_png_batch.restype = ctypes.c_int
+        lib.depthio_decode_png_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t),
+            ctypes.c_int, ctypes.POINTER(ctypes.c_uint16),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def decode_png16(data: bytes, h: int, w: int,
+                 nyu_packed: bool = False) -> Optional[np.ndarray]:
+    """Decode one PNG; returns None if the native lib is unavailable (caller
+    falls back to PIL)."""
+    lib = _load()
+    if lib is None:
+        return None
+    out = np.empty((h, w), np.uint16)
+    rc = lib.depthio_decode_png(
+        data, len(data), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        h, w, int(nyu_packed))
+    if rc != 0:
+        raise ValueError(f"depthio decode failed with code {rc}")
+    return out
+
+
+def decode_png16_batch(blobs: List[bytes], h: int, w: int,
+                       nyu_packed: bool = False,
+                       num_threads: int = 0) -> Optional[np.ndarray]:
+    """Decode a list of PNG byte strings into (n, h, w) uint16 using the C++
+    thread pool.  Returns None if the native lib is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(blobs)
+    out = np.empty((n, h, w), np.uint16)
+    arr_t = ctypes.c_char_p * n
+    size_t = ctypes.c_size_t * n
+    datas = arr_t(*blobs)
+    sizes = size_t(*[len(b) for b in blobs])
+    if num_threads <= 0:
+        num_threads = min(os.cpu_count() or 1, 8)
+    rc = lib.depthio_decode_png_batch(
+        datas, sizes, n,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        h, w, int(nyu_packed), num_threads)
+    if rc != 0:
+        raise ValueError(f"depthio batch decode failed with code {rc}")
+    return out

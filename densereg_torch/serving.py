@@ -15,8 +15,6 @@ of batch shapes. The port runs eagerly.
 
 from __future__ import annotations
 
-import dataclasses
-import os
 from typing import Optional
 
 import numpy as np
@@ -24,12 +22,7 @@ import torch
 
 from densereg_torch import decode as decode_mod
 from densereg_torch.config import CameraConfig, EvalConfig, NetConfig
-from densereg_torch.models import (
-    DenseRegNet,
-    fold_batch_norm,
-    from_flax,
-    to_flax,
-)
+from densereg_torch.models import fold_batch_norm, from_flax, to_flax
 from densereg_torch.models.bridge import is_folded, is_quantized
 from densereg_torch.models.quantize import calibrate, quantize_weights
 from densereg_torch.preprocess import (
@@ -60,7 +53,7 @@ class Predictor:
     ``compute_dtype`` is then the dtype of the float views between layers.
 
     Not ported yet, and refused with ``NotImplementedError``: multi-device
-    serving (``mesh``) and :meth:`from_converted`.
+    serving (``mesh``).
     """
 
     # uint16 integer-mm frames are accepted natively and cast on the device
@@ -125,26 +118,24 @@ class Predictor:
         checkpoint (``train_dir/ckpt_best``, ``TrainConfig.keep_best``).
         The weights go through the Flax layout (``models.to_flax``), so batch
         norm is folded as for any tree; ``kwargs`` go to ``__init__``."""
-        from densereg_torch.train.checkpoint import CheckpointManager
+        from densereg_torch.train.checkpoint import restore_net
 
-        mgr = CheckpointManager(os.path.join(
-            train_dir, "ckpt_best" if use_best else "ckpt"))
-        payload = mgr.load(step)
-        state = payload["net"]
-        if use_ema:
-            if payload["ema"] is None:
-                raise ValueError("checkpoint has no EMA weights; train with "
-                                 "TrainConfig.ema_decay")
-            state = {**state, **payload["ema"]}
-        net = DenseRegNet(dataclasses.replace(net_cfg, fold_bn=False,
-                                              quantize=False))
-        net.load_state_dict(state)
+        net = restore_net(train_dir, net_cfg, step, use_ema, use_best)
         return cls(to_flax(net), net_cfg, camera, **kwargs)
 
     @classmethod
-    def from_converted(cls, *args, **kwargs) -> "Predictor":
-        raise NotImplementedError(
-            "Predictor.from_converted is not ported to densereg_torch yet")
+    def from_converted(cls, msgpack_path: str, net_cfg: NetConfig,
+                       camera: CameraConfig, **kwargs) -> "Predictor":
+        """Serve a converted reference checkpoint (``densereg_torch.convert``
+        or the JAX package's, the same file format); ``kwargs`` go to
+        ``__init__``, so ``quantize=True`` with ``calibration`` calibrates
+        the loaded weights."""
+        from densereg_torch.convert import load_converted
+
+        payload = load_converted(msgpack_path)
+        variables = {"params": payload["params"],
+                     "batch_stats": payload["batch_stats"]}
+        return cls(variables, net_cfg, camera, **kwargs)
 
     @torch.inference_mode()
     def _normed(self, frames: torch.Tensor, bbxs: torch.Tensor):

@@ -10,12 +10,15 @@ whole; ``max_to_keep`` bounds how many stay.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 from typing import Dict, List, Optional
 
 import torch
 
+from densereg_torch.config import NetConfig
+from densereg_torch.models import DenseRegNet
 from densereg_torch.train.state import TrainState
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
@@ -102,3 +105,26 @@ class CheckpointManager:
             if name in payload["generators"]:
                 gen.set_state(payload["generators"][name])
         return state
+
+
+def restore_net(train_dir: str, net_cfg: NetConfig, step: Optional[int] = -1,
+                use_ema: bool = False, use_best: bool = False) -> DenseRegNet:
+    """The float, unfolded net of a checkpoint of ``train.loop.train``, in
+    eval mode on the CPU: ``train_dir`` is the run's directory, ``step`` a
+    saved step (-1 or None: the latest), ``use_ema`` the EMA weights (a run
+    trained with ``TrainConfig.ema_decay``), ``use_best`` the
+    best-validation checkpoint (``train_dir/ckpt_best``,
+    ``TrainConfig.keep_best``)."""
+    mgr = CheckpointManager(os.path.join(
+        train_dir, "ckpt_best" if use_best else "ckpt"))
+    payload = mgr.load(step)
+    state = payload["net"]
+    if use_ema:
+        if payload["ema"] is None:
+            raise ValueError("checkpoint has no EMA weights; train with "
+                             "TrainConfig.ema_decay to use use_ema")
+        state = {**state, **payload["ema"]}
+    net = DenseRegNet(dataclasses.replace(net_cfg, fold_bn=False,
+                                          quantize=False))
+    net.load_state_dict(state)
+    return net.eval()

@@ -8,16 +8,19 @@ end; the NaN guard one step late, flushed before any checkpoint; SIGTERM
 checkpoints and stops; an exception leaves an emergency checkpoint;
 ``restore_step="auto"`` resumes the latest checkpoint, with the input
 stream and the random generators where they were, so a stopped and
-resumed run takes the steps an uninterrupted one would. The checkpoint
-namespace is ``config.model_desc``.
+resumed run takes the steps an uninterrupted one would; ``init_params``
+starts a fresh run from converted weights. The checkpoint namespace is
+``config.model_desc``, which ``test`` (the test driver) reads too.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import signal
 import threading
+from datetime import datetime
 from typing import Optional
 
 import numpy as np
@@ -26,24 +29,77 @@ import torch
 from densereg_torch.config import EvalConfig, NetConfig, TrainConfig, model_desc
 from densereg_torch.data.base import DatasetSpec
 from densereg_torch.data.pipeline import InputPipeline, TestPipeline
-from densereg_torch.eval.loop import make_infer_fn
+from densereg_torch.eval.loop import evaluate_stream, make_infer_fn
 from densereg_torch.eval.metrics import max_joint_error
-from densereg_torch.train.checkpoint import CheckpointManager
+from densereg_torch.models import DenseRegNet, from_flax, to_flax
+from densereg_torch.train.checkpoint import CheckpointManager, restore_net
 from densereg_torch.train.state import TrainState, create_train_state
 from densereg_torch.train.step import train_step
 from densereg_torch.utils.logging import MetricLogger, TrainLogWriter
 from densereg_torch.utils.profiling import StepTimer
 
 
+def _assert_param_shapes(net: DenseRegNet, payload: dict, what: str) -> None:
+    """Fail fast, naming the offending paths, when the ``params`` tree of a
+    converted payload does not match ``net``'s parameters (Flax layout,
+    kernels HWIO); the usual cause is a num_stack/num_fea/num_joint
+    mismatch with the source model."""
+    tm = {}
+    for key, p in net.named_parameters():
+        shape = tuple(p.shape)
+        if key.endswith(".kernel"):
+            shape = (shape[2], shape[3], shape[1], shape[0])
+        tm[key.replace(".", "/")] = shape
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", tuple(np.shape(v))
+
+    pm = dict(walk(payload, ""))
+    if tm.keys() != pm.keys():
+        missing = sorted(tm.keys() - pm.keys())
+        extra = sorted(pm.keys() - tm.keys())
+        raise ValueError(
+            f"{what}: parameter tree mismatch — missing {missing[:3]}, "
+            f"unexpected {extra[:3]} (check num_stack/num_fea/num_joint "
+            f"against the converted model)")
+    bad = [(k, pm[k], tm[k]) for k in tm if tm[k] != pm[k]]
+    if bad:
+        k, got, want = bad[0]
+        raise ValueError(f"{what}: shape mismatch at {k}: {got} vs {want} "
+                         f"(+{len(bad) - 1} more)")
+
+
+def _load_converted_into(net: DenseRegNet, payload: dict, what: str) -> None:
+    """Copy a converted payload's parameters, and its batch statistics
+    where it has them, into the float, unfolded ``net`` in place."""
+    _assert_param_shapes(net, payload["params"], what)
+    stats = (payload["batch_stats"] if "batch_stats" in payload
+             else to_flax(net)["batch_stats"])
+    loaded = from_flax({"params": payload["params"], "batch_stats": stats},
+                       net.cfg)
+    net.load_state_dict(loaded.state_dict())
+
+
 def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
           val_spec: Optional[DatasetSpec] = None, restore_step=None,
           max_steps: Optional[int] = None, net_name: str = "um_v1",
-          log_fn=print, device="cuda") -> TrainState:
+          init_params: Optional[str] = None, log_fn=print,
+          device="cuda") -> TrainState:
     """Train on ``spec`` on ``device``; returns the final state.
 
     ``restore_step``: a step to resume from, ``"auto"`` for the latest
     checkpoint when there is one, or None (or 0) for a fresh run. On CUDA a
     float32 run turns TF32 off for the process, as serving does.
+
+    ``init_params`` warm-starts a fresh run (step 0, fresh optimizer) from
+    a converted payload (``densereg_torch.convert``): its parameters, its
+    batch statistics and its renorm clock; the EMA, when
+    ``tcfg.ema_decay`` is set, starts from those parameters. A checkpoint
+    restore takes precedence.
     """
     if val_spec is not None and val_spec.jnt_num != spec.jnt_num:
         raise ValueError("validation dataset must share the joint count")
@@ -72,6 +128,18 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
     if restore_step is not None and restore_step != 0:
         ckpt.restore(state, restore_step, generators)
         log_fn(f"[train] restored step {state.step} from {train_dir}")
+    elif init_params is not None:
+        from densereg_torch.convert import load_converted
+
+        payload = load_converted(init_params)
+        _load_converted_into(state.net, payload, init_params)
+        state.renorm_t = torch.tensor(
+            float(payload.get("renorm_t", state.renorm_t)), dtype=torch.float32)
+        if state.ema is not None:
+            state.ema = {k: p.detach().clone()
+                         for k, p in state.net.named_parameters()}
+        log_fn(f"[train] warm-started params from {init_params} "
+               f"(fresh optimizer, step 0)")
 
     log = TrainLogWriter(train_dir)
     metrics_log = MetricLogger(os.path.join(train_dir, "metrics.jsonl"))
@@ -197,6 +265,70 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
         pipeline.close()
         log.close()
         metrics_log.close()
+
+
+def test(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
+         ecfg: EvalConfig = EvalConfig(), selected_step: Optional[int] = -1,
+         net_name: str = "um_v1", train_spec: Optional[DatasetSpec] = None,
+         use_ema: bool = False, use_best: bool = False,
+         init_params: Optional[str] = None, log_fn=print,
+         device="cuda") -> dict:
+    """The test driver (reference model/test_model.py): restore weights,
+    stream ``spec``'s frames in batches of ``ecfg.batch_size`` through the
+    net in eval form and the decode on ``device``, and write
+    ``{subset}-{stamp}-result.txt`` (one line a frame, exactly
+    ``spec.exact_num``) and ``{subset}-{stamp}-result_error.txt`` (the
+    error curve) into the run's directory, ``tcfg.base_dir`` /
+    ``model_desc`` of ``train_spec`` (by default ``spec``'s dataset, subset
+    ``training``). Returns ``evaluate_stream``'s report.
+
+    The weights: checkpoint ``selected_step`` of that run (-1: the latest),
+    from ``ckpt_best`` with ``use_best``, its EMA weights with ``use_ema``;
+    or, with ``init_params``, a converted payload
+    (``densereg_torch.convert``), which cannot combine with ``use_ema`` or
+    ``use_best``. The evaluation runs in one process; the JAX package's
+    multi-process evaluation (``evaluate_multihost``) is not ported yet
+    (the multi-GPU item of the port's queue).
+    """
+    device = torch.device(device)
+    name_spec = train_spec if train_spec is not None else spec
+    name = model_desc(name_spec.name,
+                      "training" if train_spec is None else train_spec.subset,
+                      net_cfg, tcfg.augment, net_name)
+    train_dir = os.path.join(tcfg.base_dir, name)
+    if init_params is not None:
+        if use_ema or use_best:
+            raise ValueError("init_params is the weights source; it cannot "
+                             "combine with use_ema/use_best")
+        from densereg_torch.convert import load_converted
+
+        net = DenseRegNet(dataclasses.replace(net_cfg, fold_bn=False,
+                                              quantize=False))
+        _load_converted_into(net, load_converted(init_params), init_params)
+        os.makedirs(train_dir, exist_ok=True)
+        log_fn(f"[test] evaluating converted weights from {init_params}")
+    else:
+        net = restore_net(train_dir, net_cfg, selected_step, use_ema,
+                          use_best)
+        log_fn(f"[test] restored from {train_dir}"
+               + (" (EMA weights)" if use_ema else ""))
+    net = net.to(device).eval()
+    if device.type == "cuda" and net_cfg.compute_dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    infer_fn = make_infer_fn(net_cfg, ecfg, device=device)
+    pipe = TestPipeline(spec, ecfg.batch_size, net_cfg.input_hw,
+                        device=device)
+    stamp = str(datetime.now()).replace(" ", "_")
+    res_path = os.path.join(train_dir, f"{spec.subset}-{stamp}-result.txt")
+    err_path = os.path.join(train_dir,
+                            f"{spec.subset}-{stamp}-result_error.txt")
+    report = evaluate_stream(infer_fn, net, iter(pipe), spec.exact_num,
+                             res_path, err_path, log_fn=log_fn)
+    log_fn(f"[test] {report['num_frames']} frames @ {report['fps']:.1f} fps; "
+           f"{report['percentages']}")
+    return report
 
 
 class BestTracker:

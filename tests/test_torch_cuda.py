@@ -21,6 +21,9 @@ equal to the same net on the CPU.
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads(torch)
 
 import numpy as np  # noqa: E402
 
@@ -411,3 +414,38 @@ def test_fused_decode_refuses_what_it_cannot_take(cuda):
         ops.fused_decode(args[0][..., :8], *args[1:])
     with pytest.raises(ValueError, match="num_pt"):
         ops.fused_decode(*args, num_pt=9)
+
+
+@pytest.mark.cuda
+def test_test_driver_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The test driver (``train.loop.test``) on one padded batch (6 frames,
+    batch 8) from converted weights: the card's result lines against the
+    CPU's under ``chip_smoke.eval_card_vs_cpu``'s rule, and K1 launched once,
+    on the float nets' staging path."""
+    from chip_smoke import eval_card_vs_cpu, run_test
+    from densereg_torch import EvalConfig, NetConfig
+    from densereg_torch.convert import save_converted
+    from densereg_torch.data import synthetic
+    from densereg_torch.models import init_variables
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = NetConfig(num_stack=2, num_fea=16, num_joint=16, input_hw=(32, 32))
+    variables = init_variables(cfg, seed=4)
+    payload = str(tmp_path / "params.msgpack")
+    save_converted({**variables, "renorm_t": 0.0}, payload)
+    spec = synthetic.make_spec("testing", directory=str(tmp_path / "synth"),
+                               num_shards=1, samples_per_shard=6)
+    before = ops.fused_decode.launches
+    hm_pixels = ops.fused_decode.launches_by_path["hm_pixels"]
+    ecfg = EvalConfig(batch_size=8)
+    card = run_test(spec, cfg, str(tmp_path / "card"), cuda, ecfg,
+                    init_params=payload)
+    assert ops.fused_decode.launches == before + 1
+    assert ops.fused_decode.launches_by_path["hm_pixels"] == hm_pixels + 1
+    cpu = run_test(spec, cfg, str(tmp_path / "cpu"), "cpu", ecfg,
+                   init_params=payload)
+    assert ops.fused_decode.launches == before + 1
+    assert card[1] == cpu[1] and len(card[1]) == 6 and len(card[3]) == 17
+    row = eval_card_vs_cpu(card[2], cpu[2], variables, cfg, spec, cuda)
+    assert row["joints_off_unexplained"] == 0, row

@@ -18,6 +18,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads(torch)
 
 from chip_smoke import phase_train_card_vs_cpu, pose_boxes  # noqa: E402
 from densereg_torch import NetConfig, Predictor  # noqa: E402

@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads(torch)
 
 from densereg_tpu.data import base as jbase  # noqa: E402
 from densereg_tpu.data import synthetic as jsynthetic  # noqa: E402
@@ -81,7 +84,7 @@ def test_readers_read_each_others_shards(dirs, tmp_path):
         os.path.dirname(ours.filenames[0])), num_shards=2,
         samples_per_shard=7, seed=3).filenames == ours.filenames
     with pytest.raises(ValueError, match="unknown dataset"):
-        get_dataset("icvl", "training")
+        get_dataset("kinect", "training")
 
 
 def test_input_pipeline_order_and_shapes(dirs):

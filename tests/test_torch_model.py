@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads(torch)
 
 import jax  # noqa: E402
 

@@ -9,6 +9,9 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads(torch)
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "densereg_torch"
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "densereg_tpu"}
@@ -57,6 +60,21 @@ def test_training_modules_are_checked(name):
     assert (PKG / name).is_file()
 
 
+@pytest.mark.parametrize("name", [
+    "eval/writer.py", "eval/loop.py", "convert.py", "data/png16.py",
+    "data/native.py", "data/icvl.py", "data/nyu.py", "data/msra.py",
+    "data/bighand.py", "data/mixed.py"])
+def test_evaluation_modules_are_checked(name):
+    """The evaluation slice's modules exist where the import checks above
+    and below look; the dataset registry knows every reader."""
+    assert (PKG / name).is_file()
+    from densereg_torch.data import get_dataset
+
+    with pytest.raises(ValueError, match=r"has \['bighand', 'icvl', 'msra', "
+                                         r"'nyu', 'synthetic'\]"):
+        get_dataset("kinect", "training")
+
+
 def test_imports_with_jax_blocked():
     """Every module of the package imports in a process where importing
     JAX, Flax or the JAX package fails."""
@@ -82,15 +100,19 @@ def test_entry_points_default_to_cuda():
 
     from densereg_torch import Predictor
     from densereg_torch.data import InputPipeline, TestPipeline
+    from densereg_torch.data.mixed import MixedPipeline
     from densereg_torch.eval import make_infer_fn
-    from densereg_torch.train import create_train_state, train
+    from densereg_torch.train import create_train_state, loop, train
 
     for fn in (Predictor.__init__, make_infer_fn, train, create_train_state,
-               InputPipeline.__init__, TestPipeline.__init__):
+               InputPipeline.__init__, TestPipeline.__init__, loop.test,
+               MixedPipeline.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    # from_checkpoint hands its keywords, device included, to __init__
-    params = inspect.signature(Predictor.from_checkpoint).parameters
-    assert "device" not in params and "kwargs" in params
+    # from_checkpoint and from_converted hand their keywords, device
+    # included, to __init__
+    for fn in (Predictor.from_checkpoint, Predictor.from_converted):
+        params = inspect.signature(fn).parameters
+        assert "device" not in params and "kwargs" in params
 
 
 def test_library_name_hashes_included_headers(tmp_path, monkeypatch):

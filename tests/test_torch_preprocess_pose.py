@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads(torch)
 
 from densereg_tpu.preprocess import (  # noqa: E402
     preprocess_batch_from_pose as jpreprocess,

@@ -16,6 +16,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads(torch)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -144,8 +147,11 @@ def test_buckets_and_unported_options(setup, tmp_path):
     # calibration without quantize is ignored, as in the JAX package
     assert not Predictor(variables, NetConfig(**SHAPE), ICVL, device="cpu",
                          calibration=(None, None)).net_cfg.quantize
-    with pytest.raises(NotImplementedError):
-        Predictor.from_converted("unused", NetConfig(**SHAPE), ICVL)
+    # from_converted is ported (tests/test_torch_convert.py): a path with
+    # no payload has nothing to serve
+    with pytest.raises(FileNotFoundError):
+        Predictor.from_converted(str(tmp_path / "none.msgpack"),
+                                 NetConfig(**SHAPE), ICVL, device="cpu")
     # from_checkpoint is ported (tests/test_torch_train_loop.py): a run
     # directory without checkpoints has nothing to serve
     with pytest.raises(FileNotFoundError):

@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads(torch)
 
 from densereg_torch import Predictor  # noqa: E402
 from densereg_torch.config import NetConfig, TrainConfig, model_desc  # noqa: E402
