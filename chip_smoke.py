@@ -18,7 +18,12 @@ Phases, each printed as one JSON line:
    lone frame, channels-last heads as the int8 path hands them over and
    edge-case heads (weights negative, 0, NaN, inf), then the int8
    convolution (K3) at every distinct call of the calibrated int8 net at
-   batch 256, dense and implicit-GEMM, on that net's own operands.
+   batch 256, dense and implicit-GEMM, on that net's own operands; the
+   depthwise int8 convolution at every distinct call of the calibrated
+   (``q`` out) and the dynamic (bfloat16 ``f`` out) int8 ``um_v1_lite``
+   nets at batch 256, on their operands. K1 also on the
+   subnormal scene (``decode_subnormal_scene``: Gaussian weights that
+   underflow, which the decode flushes to zero as XLA does).
 4. ``model``: DenseRegNet s2/f128/J16 at 128x128 input (seeded random
    weights, ``init_variables``) on the card against the CPU, float32 with
    TF32 off; then the calibrated int8 net on the card (K3) against the
@@ -57,10 +62,23 @@ Phases, each printed as one JSON line:
    against the same ``test()`` on the CPU, frames/s, one more call under
    the profiler (the device's busy share), and K1's launches by staging
    path (one a batch; K2 and K3 none).
+9. ``variants``, the network variants ``um_v1_lite`` and ``um_v1_deconv``
+   at the same widths, each on counts of its own: the model on the card
+   against the CPU (float32), the calibrated int8 lite net step by step
+   (``model_int8``); ``Predictor`` serving 3 requests of 1,024 uint16
+   frames in float32, bfloat16 and, for lite, calibrated and dynamic int8
+   (the depthwise kernel once a residual, 41 a forward at s2/f128, K3 for
+   the other convolutions), for deconv dynamic int8 (its transposed
+   convolutions float), against CPU predictors (deconv dynamic int8
+   reported only: its bfloat16 transposed convolution rounds differently
+   on the two), with the stages of a dispatch; the
+   calibrated deconv net refused; ``train()`` in float32 at 40 x 5 for a
+   few steps validating on K1; one ``test()`` on 300 frames.
 
-Then a ``kernels`` line (``train_launches``, ``eval_launches``: each
-kernel's launches in phases 7 and 8), the card's ``nvidia-smi`` name and
-power limit, and
+Then a ``kernels`` line (``train_launches``, ``eval_launches``,
+``variants_launches``: each kernel's launches in phases 7, 8 and 9; the
+depthwise kernel's ``launches`` are phase 9's), the card's ``nvidia-smi``
+name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or when any phase fails, it exits non-zero and prints no result.
 """
@@ -81,6 +99,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from densereg_torch import CameraConfig, EvalConfig, NetConfig, Predictor
 from densereg_torch import decode
@@ -102,9 +121,11 @@ from densereg_torch.models import (
     quantize_weights,
 )
 from densereg_torch.models import layers
+from densereg_torch.models import ops as net_ops
 from densereg_torch.models.bridge import seeded_depth
 from densereg_torch.ops import _build
 from densereg_torch.ops import fused_decode as fd
+from densereg_torch.ops import int8_dwconv as dw
 from densereg_torch.ops import int8_gemm as k3
 from densereg_torch.ops import meanshift as k2
 from densereg_torch.preprocess import (
@@ -265,6 +286,28 @@ def decode_edge_scene(rng, b: int, h: int, w: int, j: int):
     return hms, hm3s, ums, tiny, cfgs, coms
 
 
+def decode_subnormal_scene(rng, b: int, h: int, w: int, j: int):
+    """``decode_scene`` with, in every frame but the first, every other
+    joint's five candidates on a cluster of pixels some 600 mm behind the
+    center of mass (normalized depth 2.50-2.62, hm = hm3 = 1 there, so the
+    cluster is the top-5 and each candidate weighs 1): the vote starts in
+    the nearest edge cell, 28-32 squared normalized units away, where the
+    Gaussian weight exp(-3.125 d^2) lies in float32's subnormal range or
+    just above it. XLA flushes such a weight to 0 (a joint whose weights
+    are all subnormal keeps its start); the decode must do the same."""
+    hms, hm3s, ums, tiny, cfgs, coms = decode_scene(rng, b, h, w, j)
+    cy, cx = h // 2, w // 2
+    for f in range(1, b):
+        for jj in range(0, j, 2):
+            y0 = cy + int(rng.integers(-1, 2))
+            x0 = cx + int(rng.integers(-1, 2))
+            for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1), (0, -1)):
+                hms[f, y0 + dy, x0 + dx, jj] = 1.0
+                hm3s[f, y0 + dy, x0 + dx, jj] = 1.0
+                tiny[f, y0 + dy, x0 + dx, 0] = rng.uniform(2.50, 2.62)
+    return hms, hm3s, ums, tiny, cfgs, coms
+
+
 def as_served(scene, device, layout: str = "nchw"):
     """Tensors laid out as the serving path hands them to the decode, the
     head-grid depth a ``[::4, ::4]`` view of the full-size normalized depth
@@ -392,7 +435,32 @@ def phase_kernel(device, runs=DECODE_RUNS, iters: int = 50):
               "nan_joints": int(torch.isnan(want).any(-1).sum())})
         check(err <= K1_TOL, f"fused_decode edge cases {layout}: max |err| "
                              f"{err} > {K1_TOL}")
+    scene = decode_subnormal_scene(rng, 8, 32, 32, 16)
+    for layout in K1_PATH:
+        args = as_served(scene, device, layout)
+        got = fd.fused_decode(*args)
+        torch.cuda.synchronize()
+        err = (got.cpu() - plain_on_cpu(args)).abs().max().item()
+        emit({"phase": "kernel", "name": "fused_decode",
+              "subnormal_scene": True,
+              "shape": {"b": 8, "h": 32, "w": 32, "j": 16}, "layout": layout,
+              "max_abs_err": err,
+              "joints_all_subnormal": subnormal_joints(args)})
+        check(err <= K1_TOL, f"fused_decode subnormal scene {layout}: max "
+                             f"|err| {err} > {K1_TOL}")
     return rows
+
+
+def subnormal_joints(args):
+    """Joints of a decode scene whose first mean-shift step's Gaussian
+    weights, in IEEE float32, would all be subnormal (flushed: the start
+    stays)."""
+    _, cans, w = decode.decode_plain(*(t.cpu() for t in args))
+    start = decode._vote_grid_init(cans, w).double()
+    s = torch.exp(-3.125 * ((cans.double() - start[..., None, :]) ** 2).sum(
+        -1)) * w.double()
+    return int(((s > 0) & (s < torch.finfo(torch.float32).tiny)).all(
+        -1).sum())
 
 
 # --------------------------------------------------------------------------
@@ -510,6 +578,15 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(((ia - ib).abs() // scale).max().item())
 
 
+def per_forward(rows, key):
+    """The sum over one forward of ``key``: each distinct call's value
+    times its calls a forward; None where any call lacks the value (a
+    device time the profiler did not read), so that no total is short."""
+    if any(r[key] is None for r in rows):
+        return None
+    return sum(r[key] * r["calls_per_forward"] for r in rows)
+
+
 def phase_kernel_int8(variables, net_cfg: NetConfig, device, b: int = 256,
                       iters: int = 20):
     """K3 at every distinct call of the calibrated int8 net (bfloat16
@@ -585,8 +662,7 @@ def phase_kernel_int8(variables, net_cfg: NetConfig, device, b: int = 256,
         check(f_ulps <= 1, f"int8 K3 {route} {m, k, n}: f {f_ulps} ulps off")
         rows.append(row)
     # one forward: each distinct call times the number of such calls
-    total = {key: sum(r[key] * r["calls_per_forward"] for r in rows
-                      if r[key] is not None)
+    total = {key: per_forward(rows, key)
              for key in ("ms", "device_ms", "plain_ms", "library_ms",
                          "im2col_ms",
                          "bound_ms", "bytes_ms", "ops_ms", "conv_bound_ms",
@@ -608,6 +684,162 @@ def phase_kernel_int8(variables, net_cfg: NetConfig, device, b: int = 256,
     emit({"phase": "kernel", "name": "int8_gemm_requant", "batch": b,
           "distinct_calls": len(rows), "per_forward": total})
     return rows, total
+
+
+# --------------------------------------------------------------------------
+# kernel: depthwise int8 convolution (the um_v1_lite int8 net's)
+# --------------------------------------------------------------------------
+
+def record_dw_calls(net, x):
+    """Run ``net(x)`` once with the depthwise kernel's wrapper spied on.
+    Returns the distinct calls, ``{(b, h, w, C, k, relu, emit_q, emit_f,
+    f_dtype): (args, kwargs, calls per forward)}``, each with the operands
+    of its first call."""
+    real = layers.int8_dwconv_requant
+    calls = {}
+
+    def spy(x_q, w, k, scale, bias, s_y=None, **kw):
+        key = (*x_q.shape, k, kw["relu"], kw["emit_q"], kw["emit_f"],
+               str(kw["f_dtype"]).split(".")[-1])
+        if key not in calls:
+            calls[key] = [(x_q, w, k, scale, bias, s_y), kw, 0]
+        calls[key][2] += 1
+        return real(x_q, w, k, scale, bias, s_y, **kw)
+
+    layers.int8_dwconv_requant = spy
+    try:
+        with torch.inference_mode():
+            net(x)
+    finally:
+        layers.int8_dwconv_requant = real
+    return calls
+
+
+def dw_bound(b, h, w, c, k, emit_q, f_bytes):
+    """Least time of one depthwise call (ms), as (bytes time, operations
+    time): the activation read once (b*h*w*C bytes), the taps, scale and
+    bias once, q (1 byte) and f (``f_bytes``) written once; 2 k^2 int8
+    operations an output at the int8 peak."""
+    out = b * h * w * c
+    nbytes = out + k * k * c + 8 * c + out * (int(emit_q) + f_bytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * k * k * out / INT8_OPS_PER_S * 1e3
+    return t_bytes, t_ops
+
+
+def dw_library_call(x_q, w_packed, k, scale, bias, s_y, relu, emit_q, emit_f,
+                    f_dtype):
+    """The library yardstick: cuDNN's grouped convolution
+    (``F.conv2d(groups=C)``) in float32 on the int8 values cast to float
+    (exact: k^2 * 127^2 < 2^24), then the plain epilogue. The cast is made
+    once, outside the call. Returns a closure."""
+    c = x_q.shape[-1]
+    xf = x_q.permute(0, 3, 1, 2).float()
+    wf = w_packed[:, :c].t().reshape(c, 1, k, k).float()
+
+    def call():
+        acc = F.conv2d(xf, wf, padding=k // 2, groups=c).permute(0, 2, 3, 1)
+        return k3.requant_reference(acc, scale, bias, s_y, relu=relu,
+                                    emit_q=emit_q, emit_f=emit_f,
+                                    f_dtype=f_dtype)
+    return call
+
+
+def phase_kernel_dwconv(variables, net_cfg: NetConfig, device, b: int = 256,
+                        iters: int = 20):
+    """The depthwise kernel at every distinct call of the two int8
+    ``um_v1_lite`` nets served (bfloat16 views) at batch ``b``: the
+    calibrated one, whose calls hand on ``q`` alone, and the dynamic one,
+    whose calls hand on the bfloat16 ``f`` alone; on each net's operands
+    (the pitch bytes of each activation scrambled first), against the plain
+    version on the card: ``q`` bit-identical and ``f`` within 1 ulp. Times
+    as K3's rows (``ms`` by events, ``device_ms`` by the profiler,
+    ``host_us`` a wrapper call), the plain version's, the library
+    yardstick's and the bound. Returns the per-forward totals of each net,
+    ``{"calibrated": ..., "dynamic": ...}``."""
+    cfg = dataclasses.replace(net_cfg, compute_dtype="bfloat16")
+    rng = np.random.default_rng(SEED + 3)
+    dms = torch.from_numpy(seeded_depth(rng, b, *cfg.input_hw))
+    nets = {"calibrated": int8_net(variables, cfg, device, dms[:64]),
+            "dynamic": from_flax(quantize_weights(fold_batch_norm(
+                variables, cfg.bn_epsilon)), cfg).to(device)}
+    residuals = sum(isinstance(m, layers.Residual)
+                    for m in nets["calibrated"].modules())
+    totals = {}
+    for kind, net in nets.items():
+        calls = record_dw_calls(net, dms.to(device))
+        rows = []
+        for key, (args, kw, count) in sorted(
+                calls.items(), key=lambda kv: -np.prod(kv[0][:4])):
+            rows.append(dw_row(kind, key, args, kw, count, rng, iters))
+        total = {k: per_forward(rows, k)
+                 for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                           "bound_ms", "bytes_ms", "ops_ms")}
+        total["bound_by"] = ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                             else "operations")
+        total["calls_per_forward"] = sum(r["calls_per_forward"] for r in rows)
+        total["calls_without_device_ms"] = sum(
+            r["calls_per_forward"] for r in rows if r["device_ms"] is None)
+        total["calls_with_f"] = sum(r["calls_per_forward"] for r in rows
+                                    if r["shape"]["emit_f"])
+        total["host_us_mean"] = statistics.mean(r["host_us"] for r in rows)
+        total["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        emit({"phase": "kernel", "name": "int8_dwconv_requant", "net": kind,
+              "batch": b, "distinct_calls": len(rows),
+              "residuals": residuals, "per_forward": total})
+        check(total["calls_per_forward"] == residuals,
+              f"int8_dwconv {kind}: {total['calls_per_forward']} calls a "
+              f"forward, {residuals} residuals")
+        totals[kind] = total
+    # the dynamic net's calls are the ones that emit f: every one must have
+    # been held against the plain version's f
+    check(totals["dynamic"]["calls_with_f"] == residuals,
+          f"int8_dwconv dynamic: {totals['dynamic']['calls_with_f']} of "
+          f"{residuals} calls a forward emitted f")
+    return totals
+
+
+def dw_row(kind, key, args, kw, count, rng, iters):
+    """One distinct depthwise call: the kernel against its plain version,
+    its times and its bound (an emitted row)."""
+    bb, h, wd, c, k = key[:5]
+    pitch_bytes = scramble_pitch(args[0], rng)
+    run = lambda: dw.int8_dwconv_requant(*args, **kw)
+    plain = lambda: dw.int8_dwconv_requant_reference(*args, **kw)
+    q, f = run()
+    q_p, f_p = plain()
+    torch.cuda.synchronize()
+    q_bad = 0 if q is None else int((q != q_p).sum().item())
+    f_ulps = None if f is None else ulps(f, f_p)
+    f_err = 0.0 if f is None else (f.float() - f_p.float()).abs().max(
+        ).item()
+    t_bytes, t_ops = dw_bound(bb, h, wd, c, k, kw["emit_q"],
+                              0 if f is None else f.element_size())
+    row = {"phase": "kernel", "name": "int8_dwconv_requant", "net": kind,
+           "shape": {"b": bb, "h": h, "w": wd, "C": c, "k": k,
+                     "relu": kw["relu"], "emit_q": kw["emit_q"],
+                     "emit_f": kw["emit_f"], "f_dtype": key[-1]},
+           "vector_path": args[0].stride(2) % 16 == 0,
+           "calls_per_forward": count,
+           "pitch_bytes_scrambled": pitch_bytes, "q_mismatches": q_bad,
+           "f_max_ulps": f_ulps, "max_abs_err": f_err,
+           "ms": cuda_ms(run, iters),
+           "device_ms": device_ms(run, iters, "dw_kernel"),
+           "host_us": host_us(run, 200),
+           "plain_ms": cuda_ms(plain, 3),
+           "library_ms": cuda_ms(dw_library_call(*args, **kw), iters),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes_ms": t_bytes, "ops_ms": t_ops}
+    emit(row)
+    check((q is None) == (not kw["emit_q"]) and (f is None) == (
+        not kw["emit_f"]), f"int8_dwconv {kind} {key}: outputs "
+                           f"{q is not None, f is not None} not as asked")
+    check(q_bad == 0, f"int8_dwconv {kind} {key}: {q_bad} int8 outputs "
+                      f"differ from the plain version")
+    check(f is None or f_ulps <= 1,
+          f"int8_dwconv {kind} {key}: f {f_ulps} ulps off")
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -713,7 +945,14 @@ def phase_kernel_meanshift(heads, ecfg, device, iters: int = 50):
     b, j, n, _ = cans.shape
     bound_ms, bound_by = meanshift_bound(b * j, n, ecfg.mean_shift_iters)
     edge = {}
-    for name, (e_cans, e_w) in vote_edge_cases().items():
+    _, s_cans, s_w = decode.decode_plain(*(torch.from_numpy(a) for a in
+                                           decode_subnormal_scene(
+                                               np.random.default_rng(SEED),
+                                               8, 32, 32, 16)))
+    cases = {**vote_edge_cases(),
+             "subnormal_scene": (s_cans.flatten(0, 1).numpy(),
+                                 s_w.flatten(0, 1).numpy())}
+    for name, (e_cans, e_w) in cases.items():
         e_cans, e_w = torch.from_numpy(e_cans), torch.from_numpy(e_w)
         e_got = k2.weighted_mean_shift_cuda(e_cans[None].to(device),
                                             e_w[None].to(device))[0]
@@ -874,6 +1113,7 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
     fd.fused_decode.launches_by_path = dict.fromkeys(fd.PATHS, 0)
     k3.int8_gemm_requant.launches = 0
     k2.weighted_mean_shift_cuda.launches = 0
+    dw.int8_dwconv_requant.launches = 0
     k3.im2col_nhwc.cuda_calls = 0
     secs, xyz = {}, {}
     for name in ("float32", "bfloat16", "int8"):
@@ -889,7 +1129,8 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
     launches = {"fused_decode": fd.fused_decode.launches,
                 "fused_decode_by_path": dict(fd.fused_decode.launches_by_path),
                 "int8_gemm_requant": k3.int8_gemm_requant.launches,
-                "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches}
+                "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches,
+                "int8_dwconv_requant": dw.int8_dwconv_requant.launches}
     im2col_on_card = k3.im2col_nhwc.cuda_calls
     decode_strides = {
         name: [t.stride() for t in pred._heads(
@@ -937,6 +1178,8 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
         check(im2col_on_card == 0,
               f"{im2col_on_card} int8 convolutions built an im2col on the "
               f"card instead of running K3's implicit GEMM")
+        check(launches["int8_dwconv_requant"] == 0,
+              "um_v1 serving launched the depthwise kernel")
     else:
         check(not any(v if isinstance(v, int) else any(v.values())
                       for v in launches.values()),
@@ -1378,15 +1621,17 @@ def eval_data(root: str, shards: int = 4, per_shard: int = 75):
 
 
 def run_test(spec, cfg: NetConfig, base_dir: str, device,
-             ecfg: EvalConfig = EvalConfig(), **kw):
+             ecfg: EvalConfig = EvalConfig(), net_name: str = "um_v1", **kw):
     """``train.loop.test`` into ``base_dir``'s run directory, which must
     hold no other result. Returns the report with the host seconds, the
     result file's names and xyz, and the error curve's rows."""
     t0 = time.perf_counter()
     report = test_driver(spec, cfg, TrainConfig(base_dir=base_dir), ecfg,
-                         log_fn=lambda *_: None, device=device, **kw)
+                         log_fn=lambda *_: None, device=device,
+                         net_name=net_name, **kw)
     report = {**report, "seconds": time.perf_counter() - t0}
-    run = os.path.join(base_dir, model_desc(spec.name, "training", cfg, True))
+    run = os.path.join(base_dir, model_desc(spec.name, "training", cfg, True,
+                                            net_name))
     (res,) = glob.glob(os.path.join(run, f"{spec.subset}-*-result.txt"))
     (err,) = glob.glob(os.path.join(run, f"{spec.subset}-*-result_error.txt"))
     names, xyz = read_result_file(res)
@@ -1483,6 +1728,7 @@ def phase_eval(variables, net_cfg: NetConfig, device, root: str,
     fd.fused_decode.launches_by_path = dict.fromkeys(fd.PATHS, 0)
     k3.int8_gemm_requant.launches = 0
     k2.weighted_mean_shift_cuda.launches = 0
+    dw.int8_dwconv_requant.launches = 0
     runs = {
         "init_params": run_test(spec, net_cfg, os.path.join(root, "card"),
                                 device, init_params=payload),
@@ -1494,7 +1740,8 @@ def phase_eval(variables, net_cfg: NetConfig, device, root: str,
     launches = {"fused_decode": fd.fused_decode.launches,
                 "fused_decode_by_path": dict(fd.fused_decode.launches_by_path),
                 "int8_gemm_requant": k3.int8_gemm_requant.launches,
-                "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches}
+                "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches,
+                "int8_dwconv_requant": dw.int8_dwconv_requant.launches}
     prof = eval_profile(spec, net_cfg, os.path.join(root, "profiled"), device,
                         init_params=payload)
 
@@ -1535,9 +1782,314 @@ def phase_eval(variables, net_cfg: NetConfig, device, root: str,
           == launches["fused_decode"],
           f"eval: K1 launched {launches}, not once a batch on hm_pixels")
     check(launches["int8_gemm_requant"] == 0
-          and launches["weighted_mean_shift"] == 0,
+          and launches["weighted_mean_shift"] == 0
+          and launches["int8_dwconv_requant"] == 0,
           f"the evaluation path launched an off-path kernel: {launches}")
     return launches
+
+
+# --------------------------------------------------------------------------
+# the network variants
+# --------------------------------------------------------------------------
+
+VARIANTS = ("um_v1_lite", "um_v1_deconv")
+VARIANT_TRAIN_STEPS = 6
+
+
+def zero_counts():
+    fd.fused_decode.launches = 0
+    fd.fused_decode.launches_by_path = dict.fromkeys(fd.PATHS, 0)
+    k3.int8_gemm_requant.launches = 0
+    k2.weighted_mean_shift_cuda.launches = 0
+    dw.int8_dwconv_requant.launches = 0
+    k3.im2col_nhwc.cuda_calls = 0
+
+
+def read_counts():
+    return {"fused_decode": fd.fused_decode.launches,
+            "fused_decode_by_path": dict(fd.fused_decode.launches_by_path),
+            "int8_gemm_requant": k3.int8_gemm_requant.launches,
+            "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches,
+            "int8_dwconv_requant": dw.int8_dwconv_requant.launches,
+            "im2col_nhwc_cuda_calls": k3.im2col_nhwc.cuda_calls}
+
+
+def serve_variant(variables, cfg: NetConfig, device, n_frames: int = 1024,
+                  max_batch: int = 256, buckets=(1, 64, 256), reps: int = 3,
+                  n_cpu: int = 8, n_calib: int = 64):
+    """``Predictor`` serving of one variant in each dtype it supports
+    (float32, bfloat16; ``um_v1_lite`` also calibrated and dynamic int8,
+    ``um_v1_deconv`` dynamic int8), ``reps`` requests of ``n_frames``
+    uint16 frames each (frames/s over the median), with the kernels' counts
+    zeroed just before and read just after; then card against CPU
+    predictors and the stages of a dispatch. Returns the counts."""
+    module = cfg.net_module
+    rng = np.random.default_rng(SEED + 2)
+    distinct, boxes = hand_frames(rng, min(n_frames, 256))
+    tile = -(-n_frames // len(distinct))
+    frames = np.tile(distinct, (tile, 1, 1))[:n_frames]
+    bbxs = np.tile(boxes, (tile, 1))[:n_frames]
+    calib = hand_frames(np.random.default_rng(SEED + 4), n_calib)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    modes = [("float32", f32, {}), ("bfloat16", bf16, {})]
+    if module == "um_v1_lite":
+        modes.append(("int8", bf16, dict(quantize=True, calibration=calib)))
+    modes.append(("int8_dynamic", bf16, dict(quantize=True)))
+    preds = {}
+    for name, c, kw in modes:
+        preds[name] = Predictor(variables, c, ICVL, max_batch=max_batch,
+                                batch_buckets=buckets, device=device, **kw)
+        preds[name].warmup()
+    int8_net_ = preds["int8_dynamic"].net
+    dw_convs = sum(1 for m in int8_net_.modules()
+                   if isinstance(m, layers.ConvBR) and m.depthwise)
+    k3_convs = sum(1 for m in int8_net_.modules()
+                   if isinstance(m, layers.ConvBR)) - dw_convs
+    residuals = sum(isinstance(m, layers.Residual)
+                    for m in int8_net_.modules())
+
+    zero_counts()
+    secs, xyz = {}, {}
+    for name in preds:
+        secs[name] = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            xyz[name] = preds[name](frames, bbxs)
+            secs[name].append(time.perf_counter() - t0)
+    launches = read_counts()
+    per_request = reps * -(-n_frames // max_batch)
+    dispatches = len(preds) * per_request
+    int8_dispatches = sum(n.startswith("int8") for n in preds) * per_request
+    want = {"fused_decode": dispatches,
+            "int8_gemm_requant": k3_convs * int8_dispatches,
+            "weighted_mean_shift": 0,
+            "int8_dwconv_requant": dw_convs * int8_dispatches,
+            "im2col_nhwc_cuda_calls": 0}
+    b = min(n_frames, max_batch)
+    dev_frames = torch.from_numpy(frames[:b]).to(device)
+    dev_bbxs = torch.from_numpy(bbxs[:b]).to(device)
+    checks = {}
+    n = min(n_cpu, n_frames)
+    cpu_preds = [("float32", Predictor(variables, f32, ICVL, max_batch=n,
+                                       device="cpu"))]
+    if module == "um_v1_lite":
+        qtree = {**quantize_weights(fold_batch_norm(variables,
+                                                    cfg.bn_epsilon)),
+                 "act_stats": act_stats_to_flax(preds["int8"].net)}
+        cpu_preds.append(("int8", Predictor(qtree, bf16, ICVL, max_batch=n,
+                                            device="cpu")))
+    # dynamic int8: each layer's scale is its batch's max|x|, and a padded
+    # dispatch repeats the last frame, so the card's bucket of n frames and
+    # the CPU's batch of n quantize alike
+    cpu_preds.append(("int8_dynamic", Predictor(
+        variables, bf16, ICVL, max_batch=n, quantize=True, device="cpu")))
+    for name, cpu in cpu_preds:
+        checks[f"card_vs_cpu_{name}"] = card_vs_cpu(
+            preds[name], cpu, frames[:n], bbxs[:n], dev_frames[:n],
+            dev_bbxs[:n])
+    if module == "um_v1_deconv":
+        # how far the CPU's dynamic int8 heads move when only the
+        # transposed convolution's rounding changes (2 frames)
+        checks["cpu_int8_dynamic_deconv_rounding_head_err"] = (
+            deconv_rounding_gap(cpu_preds[-1][1], frames[:2], bbxs[:2]))
+    for name, pred in preds.items():
+        heads = pred._heads(dev_frames, dev_bbxs)
+        normed = decode.decode_poses(*heads, pred.ecfg)["normed"]
+        checks[f"{name}_kernel_vs_plain_normed"] = (
+            normed.cpu() - plain_on_cpu(heads)).abs().max().item()
+    row = {"phase": "variants", "part": "serving", "net_module": module,
+           "config": cfg.__dict__, "frames_per_request": n_frames,
+           "frame_dtype": "uint16", "max_batch": max_batch,
+           "frames_per_s": {d: n_frames / statistics.median(t)
+                            for d, t in secs.items()},
+           "request_s": secs, "dispatches": dispatches,
+           "int8_dispatches": int8_dispatches,
+           "int8_convs_per_forward": {"int8_gemm_requant": k3_convs,
+                                      "int8_dwconv_requant": dw_convs},
+           "residuals": residuals, "launches": launches,
+           "expected_launches": want,
+           "decode_input_strides": {
+               name: [t.stride() for t in pred._heads(
+                   pred._to_device(frames[:1]), pred._to_device(bbxs[:1]))[:4]]
+               for name, pred in preds.items()},
+           "checks": checks,
+           "stages": {d: stage_ms(p, frames[:b], bbxs[:b])
+                      for d, p in preds.items()}}
+    emit(row)
+    for name, out in xyz.items():
+        check(out.shape == (n_frames, 3 * cfg.num_joint)
+              and bool(np.isfinite(out).all()),
+              f"variants {module} {name}: xyz {out.shape} or non-finite")
+    for key, v in want.items():
+        check(launches[key] == v, f"variants {module}: {key} launched "
+                                  f"{launches[key]} times, expected {v}")
+    # the int8 net's channels-last heads take the pixels path; the float
+    # nets' paths follow the layouts cuDNN hands over (reported), none
+    # strided
+    paths = launches["fused_decode_by_path"]
+    check(paths["pixels"] >= int8_dispatches and paths["strided"] == 0,
+          f"variants {module}: fused_decode paths {paths} with "
+          f"{int8_dispatches} int8 dispatches")
+    check(dw_convs == (residuals if module == "um_v1_lite" else 0),
+          f"variants {module}: {dw_convs} depthwise convolutions, "
+          f"{residuals} residuals")
+    for name in preds:
+        err = checks[f"{name}_kernel_vs_plain_normed"]
+        check(err <= K1_TOL, f"variants {module} {name}: K1 vs plain {err}")
+    # every dynamic int8 lite layer is K3 or the depthwise kernel, each
+    # equal to its plain version, so the lite net is held like the others;
+    # the deconv net's transposed convolution runs in bfloat16 on cuDNN
+    # and on the CPU's own convolution, whose roundings differ and move
+    # the next layer's int8 steps: reported, not held
+    held = [name for name, _ in cpu_preds
+            if not (name == "int8_dynamic" and module == "um_v1_deconv")]
+    for name in held:
+        c = checks[f"card_vs_cpu_{name}"]
+        check(c["joints_off_without_a_flip"] == 0,
+              f"variants {module}: card vs CPU {name}: "
+              f"{c['joints_off_without_a_flip']} joints off by more than "
+              f"{XYZ_TOL_MM} mm with no decode flip")
+    return launches
+
+
+def deconv_rounding_gap(pred: Predictor, frames, bbxs) -> float:
+    """The largest change of ``pred``'s heads (hm, hm3, um) when its
+    transposed convolutions compute in float32 and round to their input's
+    dtype once, against the default convolution of that dtype."""
+    args = torch.from_numpy(frames), torch.from_numpy(bbxs)
+    heads = pred._heads(*args)[:3]
+    real = net_ops._ConvTranspose.forward
+    net_ops._ConvTranspose.forward = (
+        lambda self, x: real(self, x.float()).to(x.dtype))
+    try:
+        rounded = pred._heads(*args)[:3]
+    finally:
+        net_ops._ConvTranspose.forward = real
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(heads, rounded))
+
+
+def check_deconv_refuses_calibration(variables, cfg: NetConfig, device):
+    """A calibrated int8 ``um_v1_deconv`` predictor must raise
+    ``NotImplementedError`` (the JAX package's crashes)."""
+    calib = hand_frames(np.random.default_rng(SEED + 4), 4)
+    try:
+        Predictor(variables, dataclasses.replace(cfg,
+                                                 compute_dtype="bfloat16"),
+                  ICVL, max_batch=4, quantize=True, calibration=calib,
+                  device=device)
+    except NotImplementedError as e:
+        emit({"phase": "variants", "part": "calibrated_deconv_refused",
+              "net_module": cfg.net_module, "message": str(e)})
+        return
+    raise RuntimeError("a calibrated int8 um_v1_deconv was served")
+
+
+def train_variant(spec, val, cfg: NetConfig, root: str, device):
+    """``train()`` in float32 at the ``TrainConfig`` defaults (40 x 5) for
+    ``VARIANT_TRAIN_STEPS`` steps, validating on K1 every 3 and keeping the
+    best: samples/s (median of steps 2 on), peak memory, K1's launches."""
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    tcfg = TrainConfig(base_dir=root, validate_every=3, keep_best=True,
+                       summary_every=1)
+    train_dir = os.path.join(root, model_desc(spec.name, spec.subset, cfg,
+                                              tcfg.augment, cfg.net_module))
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train(spec, cfg, tcfg, val_spec=val, max_steps=VARIANT_TRAIN_STEPS,
+              net_name=cfg.net_module, device=device, log_fn=lambda *_: None)
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    secs = [r["sec_per_batch"] for r in rows if r["step"] >= 2]
+    losses = [r["loss"] for r in rows]
+    samples = tcfg.batch_size * tcfg.sub_batch
+    emit({"phase": "variants", "part": "train", "net_module": cfg.net_module,
+          "config": cfg.__dict__, "batch": [tcfg.sub_batch, tcfg.batch_size],
+          "steps": len(rows), "samples_per_s": samples / statistics.median(
+              secs), "step_s": secs,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+          / 2 ** 30, "loss_first": losses[0], "loss_last": losses[-1],
+          "train_s": train_s, "launches": launches})
+    check(len(rows) == VARIANT_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"variants {cfg.net_module} train: {len(rows)} steps, {losses}")
+    check(launches["fused_decode"] > 0
+          and launches["fused_decode_by_path"]["strided"] == 0
+          and launches["int8_gemm_requant"] == 0
+          and launches["int8_dwconv_requant"] == 0,
+          f"variants {cfg.net_module} train: launches {launches}")
+    return launches
+
+
+def eval_variant(variables, spec, cfg: NetConfig, root: str, device):
+    """One ``test()`` call on ``spec``'s frames (300) from a payload of the
+    seeded weights, the run named by the variant."""
+    os.makedirs(root, exist_ok=True)
+    payload = os.path.join(root, f"{cfg.net_module}.msgpack")
+    save_converted({**variables, "renorm_t": 0.0}, payload)
+    zero_counts()
+    report, names, xyz, curve = run_test(
+        spec, cfg, os.path.join(root, cfg.net_module), device,
+        net_name=cfg.net_module, init_params=payload)
+    launches = read_counts()
+    batches = -(-spec.exact_num // EvalConfig().batch_size)
+    emit({"phase": "variants", "part": "test", "net_module": cfg.net_module,
+          "frames": spec.exact_num, "frames_per_s": report["fps"],
+          "seconds": report["seconds"], "result_lines": len(names),
+          "curve_lines": len(curve), "launches": launches})
+    check(len(names) == spec.exact_num and len(curve) == 17
+          and xyz.shape == (spec.exact_num, 3 * cfg.num_joint)
+          and bool(np.isfinite(xyz).all()),
+          f"variants {cfg.net_module} test: {len(names)} lines, xyz "
+          f"{xyz.shape}")
+    check(launches["fused_decode"] == batches,
+          f"variants {cfg.net_module} test: K1 launched "
+          f"{launches['fused_decode']} times in {batches} batches")
+    return launches
+
+
+def phase_variants(trees, net_cfg: NetConfig, device, root: str,
+                   train_root: str, eval_root: str):
+    """``um_v1_lite`` and ``um_v1_deconv`` at ``net_cfg``'s widths: the
+    model on the card against the CPU (float32), the calibrated int8 lite
+    net step by step, serving in every dtype each supports, the calibrated
+    deconv refusal, ``train()`` and ``test()``, from the seeded weights
+    ``trees[module]``. Returns each kernel's launches over the phase's
+    serving, training and test runs."""
+    spec, val = train_data(os.path.join(train_root, "data"))
+    test_spec = synthetic.make_spec(
+        "testing", directory=os.path.join(eval_root, "data"), num_shards=4,
+        samples_per_shard=75, seed=SEED)
+    total = dict.fromkeys(("fused_decode", "int8_gemm_requant",
+                           "weighted_mean_shift", "int8_dwconv_requant"), 0)
+    k1_paths = dict.fromkeys(fd.PATHS, 0)
+    for module in VARIANTS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(net_cfg, net_module=module)
+        variables = trees[module]
+        phase_model(variables, cfg, device)
+        if module == "um_v1_lite":
+            phase_model_int8(variables, cfg, device)
+        else:
+            check_deconv_refuses_calibration(variables, cfg, device)
+        runs = [serve_variant(variables, cfg, device),
+                train_variant(spec, val, cfg, os.path.join(root, "train"),
+                              device),
+                eval_variant(variables, test_spec, cfg,
+                             os.path.join(root, "test"), device)]
+        for counts in runs:
+            for k in total:
+                total[k] += counts[k]
+            for p, v in counts["fused_decode_by_path"].items():
+                k1_paths[p] += v
+        torch.cuda.empty_cache()
+        emit({"phase": "variants", "part": "done", "net_module": module,
+              "seconds": time.perf_counter() - t0})
+    return {**total, "fused_decode_by_path": k1_paths}
 
 
 def main() -> int:
@@ -1562,6 +2114,12 @@ def main() -> int:
     net_cfg = NetConfig()
     variables = init_variables(net_cfg, seed=SEED)
     _, k3_total = phase_kernel_int8(variables, net_cfg, "cuda")
+    trees = {m: init_variables(dataclasses.replace(net_cfg, net_module=m),
+                               seed=SEED) for m in VARIANTS}
+    dw_totals = phase_kernel_dwconv(
+        trees["um_v1_lite"],
+        dataclasses.replace(net_cfg, net_module="um_v1_lite"), "cuda")
+    dw_total = dw_totals["calibrated"]
     phase_model(variables, net_cfg, "cuda")
     phase_model_int8(variables, net_cfg, "cuda")
     launches, preds, frames, bbxs = phase_serving(variables, "cuda", net_cfg)
@@ -1575,19 +2133,29 @@ def main() -> int:
         # the training path, on counts of its own
         k3.int8_gemm_requant.launches = 0
         k2.weighted_mean_shift_cuda.launches = 0
+        dw.int8_dwconv_requant.launches = 0
         train_root = os.path.join(root, "train")
         train_launches = phase_train(net_cfg, "cuda", train_root)
         train_launches.update(
             int8_gemm_requant=k3.int8_gemm_requant.launches,
-            weighted_mean_shift=k2.weighted_mean_shift_cuda.launches)
+            weighted_mean_shift=k2.weighted_mean_shift_cuda.launches,
+            int8_dwconv_requant=dw.int8_dwconv_requant.launches)
         check(train_launches["int8_gemm_requant"] == 0
-              and train_launches["weighted_mean_shift"] == 0,
+              and train_launches["weighted_mean_shift"] == 0
+              and train_launches["int8_dwconv_requant"] == 0,
               f"the training path launched an off-path kernel: "
               f"{train_launches}")
         # the evaluation path, on counts of its own
         eval_launches = phase_eval(variables, net_cfg, "cuda",
                                    os.path.join(root, "eval"), train_root,
                                    smi)
+        # the network variants, on counts of their own
+        variants_launches = phase_variants(
+            trees, net_cfg, "cuda", os.path.join(root, "variants"),
+            train_root, os.path.join(root, "eval"))
+        check(variants_launches["int8_dwconv_requant"] > 0
+              and variants_launches["weighted_mean_shift"] == 0,
+              f"the variants' paths launched {variants_launches}")
 
     # the serving bucket as the float nets (hm_pixels) and the int8 net
     # (pixels) hand it over
@@ -1604,6 +2172,8 @@ def main() -> int:
         "train_launches_by_path": train_launches["fused_decode_by_path"],
         "eval_launches": eval_launches["fused_decode"],
         "eval_launches_by_path": eval_launches["fused_decode_by_path"],
+        "variants_launches": variants_launches["fused_decode"],
+        "variants_launches_by_path": variants_launches["fused_decode_by_path"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"],
         "device_ms_channels_last": int8_row["device_ms"],
@@ -1620,6 +2190,7 @@ def main() -> int:
         "train_launches": train_launches["int8_gemm_requant"],
         "eval_launches": eval_launches["int8_gemm_requant"],
         "eval_launches_by_path": None,
+        "variants_launches": variants_launches["int8_gemm_requant"],
         "max_abs_err": k3_total["max_abs_err"],
         "ms": k3_total["ms"], "device_ms": k3_total["device_ms"],
         "plain_ms": k3_total["plain_ms"],
@@ -1635,11 +2206,36 @@ def main() -> int:
         "train_launches": train_launches["weighted_mean_shift"],
         "eval_launches": eval_launches["weighted_mean_shift"],
         "eval_launches_by_path": None,
+        "variants_launches": variants_launches["weighted_mean_shift"],
         "max_abs_err": k2_row["max_abs_err"],
         "ms": k2_row["ms"], "device_ms": k2_row["device_ms"],
         "host_us": k2_row["host_us"], "plain_ms": k2_row["plain_ms"],
         "bound_ms": k2_row["bound_ms"], "bound_by": k2_row["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None}, {
+        # the port's own kernel (no Pallas counterpart: XLA's grouped int8
+        # convolution in the JAX package); one forward of the calibrated
+        # int8 um_v1_lite net at batch 256, every call summed. Its main
+        # path is the variants phase: "launches" counts that phase
+        "name": "int8_dwconv_requant", "route": "cuda",
+        "source": "densereg_torch/csrc/int8_dwconv.cu",
+        "includes": ["densereg_torch/csrc/requant.cuh"],
+        "replaces": "densereg_tpu/models/layers.py:237",
+        "launches": variants_launches["int8_dwconv_requant"],
+        "serving_launches": launches["int8_dwconv_requant"],
+        "train_launches": train_launches["int8_dwconv_requant"],
+        "eval_launches": eval_launches["int8_dwconv_requant"],
+        "eval_launches_by_path": None,
+        "variants_launches": variants_launches["int8_dwconv_requant"],
+        "calls_per_forward": dw_total["calls_per_forward"],
+        "max_abs_err": max(t["max_abs_err"] for t in dw_totals.values()),
+        "ms": dw_total["ms"], "device_ms": dw_total["device_ms"],
+        "host_us": dw_total["host_us_mean"], "plain_ms": dw_total["plain_ms"],
+        "bound_ms": dw_total["bound_ms"], "bound_by": dw_total["bound_by"],
+        "library_ms": dw_total["library_ms"],
+        # the dynamic int8 lite net's forward (bfloat16 f out of each call)
+        "dynamic": {k: dw_totals["dynamic"][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err")}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

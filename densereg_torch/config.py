@@ -16,6 +16,8 @@ D_RANGE = 300.0          # depth-normalization window size (mm)
 POSE_NORM_RATIO = 100.0  # xyz pose normalization divisor (mm -> units)
 MAX_DIST_2D = 4.0        # heatmap cone radius (pixels)
 MAX_DIST_3D = 0.8        # offset cone radius (normalized units = 80 mm)
+# the network variants (densereg_tpu/config.py:64-70)
+NET_MODULES = ("um_v1", "um_v1_lite", "um_v1_deconv")
 
 
 class CameraConfig(NamedTuple):
@@ -35,7 +37,11 @@ class CameraConfig(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class NetConfig:
-    """Architecture of the stacked-hourglass detector (``um_v1``)."""
+    """Architecture of the stacked-hourglass detector. ``net_module`` is
+    ``"um_v1"`` (the reference topology), ``"um_v1_lite"`` (depthwise
+    middle convolutions in the residual bottlenecks) or ``"um_v1_deconv"``
+    (a learned stride-2 transposed convolution upsamples in the hourglass),
+    as in ``densereg_tpu/config.py``."""
 
     num_stack: int = 2
     num_fea: int = 128
@@ -62,6 +68,11 @@ class NetConfig:
     # recompute the forward on the backward pass; not ported (a recomputed
     # forward would update the renorm moving statistics a second time)
     remat: bool = False
+
+    def __post_init__(self):
+        if self.net_module not in NET_MODULES:
+            raise ValueError(f"net_module must be one of {NET_MODULES}, got "
+                             f"{self.net_module!r}")
 
     @property
     def output_hw(self) -> Tuple[int, int]:

@@ -61,7 +61,9 @@
 // takes about 3x the bound. Overlapping them needs a kernel that stages
 // one work item while it decodes the last (persistent, double-buffered).
 //
-// Numerics: build without --use_fast_math and with --fmad=false. The
+// Numerics: build without --use_fast_math and with --fmad=false and
+// -ftz=true (subnormal float32 values flushed to zero, as XLA and the
+// plain version's flush_subnormals compute; ops/_build.py). The
 // float -> int rounding of a reprojection decides which pixel's weight a
 // candidate gets, and the mean shift magnifies a last-bit change in the
 // Gaussian weight of a far candidate, so the arithmetic repeats the plain

@@ -69,15 +69,18 @@
 //   pitch allows), so every store fills whole sectors.
 //
 // Numerics: build with --fmad=false and without --use_fast_math. The
-// epilogue is a multiply then an add, each rounded (no FMA), an IEEE
-// division by s_y (not a multiply by its reciprocal) and rintf, which
-// rounds half to even like torch.round; s_y is read from device memory, so
-// the caller never synchronises with the host. bfloat16 rounds to nearest
-// even, as y.to(torch.bfloat16).
+// epilogue (requant.cuh, shared with the depthwise convolution) is a
+// multiply then an add, each rounded (no FMA), an IEEE division by s_y (not
+// a multiply by its reciprocal) and rintf, which rounds half to even like
+// torch.round; s_y is read from device memory, so the caller never
+// synchronises with the host. bfloat16 rounds to nearest even, as
+// y.to(torch.bfloat16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "requant.cuh"
 
 namespace {
 
@@ -362,20 +365,15 @@ __global__ void __launch_bounds__(kThreads, 2) k3_kernel(const Args a) {
       const int col = ni * 8 + 2 * t;
       float y[2];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        y[e] = __fmul_rn(__int2float_rn(acc[4 * ni + 2 * h + e]),
-                         s_scale[col + e]);
-        y[e] = __fadd_rn(y[e], s_bias[col + e]);
-        if (a.relu) y[e] = fmaxf(y[e], 0.0f);
-      }
+      for (int e = 0; e < 2; ++e)
+        y[e] = requant::requant_y(acc[4 * ni + 2 * h + e], s_scale[col + e],
+                                  s_bias[col + e], a.relu);
       if (emit_q) {
         uint32_t packed = 0;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float r = y[e] == 0.0f ? 0.0f : rintf(__fdiv_rn(y[e], sy));
-          const int v = (int)fminf(fmaxf(r, -127.0f), 127.0f);
-          packed |= (uint32_t)(uint8_t)(int8_t)v << (8 * e);
-        }
+        for (int e = 0; e < 2; ++e)
+          packed |= (uint32_t)(uint8_t)requant::requant_q(y[e], sy)
+                    << (8 * e);
         *reinterpret_cast<uint16_t*>(sq + row * q_pitch<BN>() + col) =
             (uint16_t)packed;
       }

@@ -34,8 +34,15 @@
 // order, one IEEE division a coordinate; a weight sum that is not positive
 // (all weights 0, or NaN) keeps the centre.
 //
-// Numerics: built with --fmad=false and without --use_fast_math: IEEE
-// division, no contraction into FMAs, sums in candidate order. The
+// Numerics: built with --fmad=false, -ftz=true and without
+// --use_fast_math: IEEE division, no contraction into FMAs, sums in
+// candidate order, and every subnormal float32 input or result of a float32
+// operation flushed to a zero of its sign, as XLA computes on the CPU and
+// the TPU (and the plain version, through flush_subnormals): a Gaussian
+// weight that underflows below 2^-126 adds nothing, and a weight sum made
+// only of such weights is 0, so the centre stays. The exponential's
+// conversion from double is flushed explicitly (flush_subnormal), as are
+// the candidates and weights the segment gathers. The
 // exponential is taken in double of the float argument and rounded to
 // float, i.e. correctly rounded, where CUDA's expf is within 2 ulp: the
 // CPU's float exp, the oracle's, is within 1 ulp, and ten steps magnified
@@ -51,6 +58,12 @@
 namespace vote_meanshift {
 
 constexpr int kSeg = 8;  // lanes a problem; at most kSeg candidates
+
+// v, or a zero of v's sign where v is subnormal (exponent bits 0)
+__device__ __forceinline__ float flush_subnormal(float v) {
+  const unsigned u = __float_as_uint(v);
+  return __uint_as_float((u & 0x7f800000u) ? u : (u & 0x80000000u));
+}
 
 // (vote a of cell ca) beats (vote b of cell cb): NaN above every number,
 // ties to the larger cell index
@@ -73,10 +86,10 @@ __device__ __forceinline__ float3 run(unsigned mask, float cx, float cy,
   float x[N], y[N], z[N], w[N];
 #pragma unroll
   for (int t = 0; t < N; ++t) {
-    x[t] = __shfl_sync(mask, cx, t, kSeg);
-    y[t] = __shfl_sync(mask, cy, t, kSeg);
-    z[t] = __shfl_sync(mask, cz, t, kSeg);
-    w[t] = __shfl_sync(mask, cw, t, kSeg);
+    x[t] = flush_subnormal(__shfl_sync(mask, cx, t, kSeg));
+    y[t] = flush_subnormal(__shfl_sync(mask, cy, t, kSeg));
+    z[t] = flush_subnormal(__shfl_sync(mask, cz, t, kSeg));
+    w[t] = flush_subnormal(__shfl_sync(mask, cw, t, kSeg));
   }
   const float nq = (float)(grid / 2);
 
@@ -134,7 +147,7 @@ __device__ __forceinline__ float3 run(unsigned mask, float cx, float cy,
       const float dy = y[t] - ay;
       const float dz = z[t] - az;
       const float arg = inv_sigma * (dx * dx + dy * dy + dz * dz);
-      s[t] = (float)exp((double)arg) * w[t];
+      s[t] = flush_subnormal((float)exp((double)arg)) * w[t];
     }
     float nx = 0.0f, ny = 0.0f, nz = 0.0f, den = 0.0f;
 #pragma unroll

@@ -8,6 +8,9 @@ CUDA tensors.
 Arithmetic follows the JAX decode operation by operation (same
 association, no fused multiply-add), so that a candidate's rounded
 reprojection lands on the same pixel in both packages and in the kernel.
+It also follows XLA in flushing subnormal float32 values to zero
+(:func:`flush_subnormals`), as the kernels do, built with ``-ftz=true``: a
+mean-shift Gaussian weight that underflows below 2^-126 counts for nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +20,18 @@ import torch.nn.functional as F
 
 from densereg_torch import geometry
 from densereg_torch.config import MAX_DIST_3D, POSE_NORM_RATIO, EvalConfig
+
+
+# the smallest normal float32
+_FLT_MIN = torch.finfo(torch.float32).tiny
+
+
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """Each subnormal element of ``x`` as a zero of its sign: what XLA's
+    float32 arithmetic does on the CPU and the TPU (FTZ on results, DAZ on
+    inputs), applied to a tensor, without touching torch's process-wide
+    ``set_flush_denormal``. NaN and infinities pass."""
+    return torch.where(x.abs() < _FLT_MIN, x * 0.0, x)
 
 
 def _trunc_int32(x: torch.Tensor) -> torch.Tensor:
@@ -88,30 +103,37 @@ def weighted_mean_shift(cans, weights, num_it: int, band_width: float,
                         grid: int = 4):
     """Weighted Gaussian mean shift from the voting-grid start; where every
     weight is 0 the grid estimate is kept (the reference divides 0/0).
+    Every float32 result is flushed to zero where it is subnormal, inputs
+    too (:func:`flush_subnormals`), as XLA computes: a Gaussian weight
+    that underflows adds nothing, and a sum of such weights is 0, so the
+    estimate stays.
 
     cans (..., n, 3); weights (..., n). Returns (..., 3).
     """
+    ftz = flush_subnormals
     inv_sigma = -1.0 / (2.0 * band_width * band_width)
+    cans, weights = ftz(cans), ftz(weights)
     cur = _vote_grid_init(cans, weights, grid)
     for _ in range(num_it):
-        sq = torch.square(cans - cur[..., None, :])
-        d2 = sq[..., 0] + sq[..., 1] + sq[..., 2]
-        s = torch.exp(inv_sigma * d2) * weights
-        num = _sum_in_order(cans * s[..., None], dim=-2)
+        sq = ftz(torch.square(ftz(cans - cur[..., None, :])))
+        d2 = ftz(ftz(sq[..., 0] + sq[..., 1]) + sq[..., 2])
+        s = ftz(ftz(torch.exp(ftz(inv_sigma * d2))) * weights)
+        num = _sum_in_order(ftz(cans * s[..., None]), dim=-2)
         den = _sum_in_order(s, dim=-1)[..., None]
         ok = den > 0.0
-        cur = torch.where(ok, num / torch.where(ok, den, 1.0), cur)
+        cur = torch.where(ok, ftz(num / torch.where(ok, den, 1.0)), cur)
     return cur
 
 
 def _sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum along ``dim`` from first to last element, the order in which the
     fused kernel sums its candidates (a reduction kernel picks its own
-    order, and over ten mean-shift steps the rounding adds up)."""
+    order, and over ten mean-shift steps the rounding adds up); each
+    partial sum goes through :func:`flush_subnormals`."""
     parts = x.unbind(dim)
     acc = parts[0]
     for p in parts[1:]:
-        acc = acc + p
+        acc = flush_subnormals(acc + p)
     return acc
 
 
@@ -122,8 +144,11 @@ def decode_plain(hms, hm3s, ums, tiny_dms, cfgs, coms,
     weights (b, j, n))``."""
     b, h, w, j = hms.shape
     hw = h * w
+    # XLA's DAZ on the heads and the depth, FTZ on the scores and candidates
+    hms, hm3s, ums, tiny_dms = (flush_subnormals(t)
+                                for t in (hms, hm3s, ums, tiny_dms))
     xyzs = geometry.backproject_dm(tiny_dms, cfgs, coms)            # (b,h,w,3)
-    refined = refined_heatmaps(hms, hm3s, tiny_dms)
+    refined = flush_subnormals(refined_heatmaps(hms, hm3s, tiny_dms))
     top_idx = top_k_first_index(refined.reshape(b, hw, j).transpose(1, 2),
                                 cfg.num_candidates)                  # (b,j,n)
     idx3 = top_idx[..., None].expand(-1, -1, -1, 3)
@@ -131,8 +156,9 @@ def decode_plain(hms, hm3s, ums, tiny_dms, cfgs, coms,
                            2, idx3)
     hm3_sel = torch.gather(hm3s.reshape(b, hw, j).transpose(1, 2), 2, top_idx)
     um_sel = torch.gather(ums.reshape(b, hw, j, 3).transpose(1, 2), 2, idx3)
-    dist = MAX_DIST_3D - hm3_sel * MAX_DIST_3D
-    cans = xyz_sel + um_sel * dist[..., None]
+    dist = flush_subnormals(MAX_DIST_3D - hm3_sel * MAX_DIST_3D)
+    cans = flush_subnormals(xyz_sel + flush_subnormals(um_sel
+                                                       * dist[..., None]))
     weights = candidate_weights(cans, coms, cfgs, hms)
     normed = weighted_mean_shift(cans, weights, cfg.mean_shift_iters,
                                  cfg.band_width, cfg.vote_grid)

@@ -20,8 +20,12 @@ import numpy as np
 import torch
 
 from densereg_torch.config import NetConfig
-from densereg_torch.models.hourglass import DenseRegNet
+from densereg_torch.models.hourglass import (
+    DenseRegNet,
+    refuse_calibrated_deconv,
+)
 from densereg_torch.models.layers import BatchRenorm, ConvBR
+from densereg_torch.models.ops import Deconv
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -68,6 +72,8 @@ def from_flax(variables, net_cfg: NetConfig) -> DenseRegNet:
     """
     folded = is_folded(variables)
     quantized = is_quantized(variables)
+    if quantized and variables.get("act_stats"):
+        refuse_calibrated_deconv(net_cfg)
     net = DenseRegNet(dataclasses.replace(net_cfg, fold_bn=folded,
                                           quantize=quantized))
     flat = _flatten(variables["params"])
@@ -198,7 +204,8 @@ def init_variables(net_cfg: NetConfig, seed: int = 0) -> dict:
     so no channel divides by a near-zero spread). Each convolution without
     renorm is scaled to a unit output std, except the ``hm`` and ``hm3``
     heads, which are set per channel to mean 0.5 and std 0.25, a trained
-    net's range: every head is O(1) on such inputs. (The training init, std
+    net's range, and a ``Deconv`` (``um_v1_deconv``), scaled to its
+    input's std: every head is O(1) on such inputs. (The training init, std
     0.01 and zero biases, shrinks the activations toward 0 through the ~140
     convolutions, and the decode then sees only ties; He kernels with
     arbitrary statistics grow them by orders of magnitude instead.)
@@ -246,8 +253,17 @@ def init_variables(net_cfg: NetConfig, seed: int = 0) -> dict:
             conv.bias.add_(mean - y.mean(dim=(0, 2, 3)) * scale)
         return hook
 
+    def like_input(deconv, args):
+        """A learned upsample that keeps its input's spread, as the nearest
+        one does (the float net hands it NCHW)."""
+        conv = deconv.ConvTranspose_0
+        y = conv(args[0]) - conv.bias.view(1, -1, 1, 1)
+        conv.kernel.mul_(args[0].std() / y.std())
+
     hooks = [m.register_forward_pre_hook(set_stats) for m in net.modules()
              if isinstance(m, BatchRenorm)]
+    hooks += [m.register_forward_pre_hook(like_input) for m in net.modules()
+              if isinstance(m, Deconv)]
     # convolutions without renorm are scaled to a unit output std instead,
     # except the heatmap heads, which are set to a trained net's range: hm
     # and hm3 mostly in [0, 1], so that the decode's weights (hm at the

@@ -1,5 +1,8 @@
-"""Stacked-hourglass dense-regression network ``um_v1``, training and eval
-form.
+"""Stacked-hourglass dense-regression network, training and eval form, in
+its three variants (``NetConfig.net_module``): ``um_v1``; ``um_v1_lite``,
+whose residual bottlenecks take a depthwise middle convolution; and
+``um_v1_deconv``, whose hourglass upsamples with a learned stride-2
+transposed convolution (``models.ops.Deconv``) instead of nearest.
 
 Mirrors ``densereg_tpu/models/hourglass.py`` module for module, with the
 same submodule names. Inside, the layout is NCHW; the public interface keeps
@@ -25,6 +28,20 @@ from densereg_torch.models.layers import (
     quantize_output,
     upsample_nearest_2x,
 )
+from densereg_torch.models.ops import Deconv, dropout
+
+def refuse_calibrated_deconv(cfg: NetConfig) -> None:
+    """Raise ``NotImplementedError`` for a ``um_v1_deconv`` net that is
+    about to be calibrated or given calibration statistics: the JAX
+    package's calibrated int8 net of that variant crashes when its
+    transposed convolution meets a QTensor, and the port adds no form of
+    it."""
+    if cfg.net_module == "um_v1_deconv":
+        raise NotImplementedError(
+            "a calibrated int8 um_v1_deconv is not supported: the JAX "
+            "package's net crashes on it (densereg_tpu/models/hourglass.py:93 "
+            "hands the ConvTranspose a QTensor); serve um_v1_deconv in float "
+            "or dynamic int8")
 
 
 def renorm_clip_schedule(t) -> Tuple[float, float]:
@@ -41,43 +58,33 @@ def renorm_clip_schedule(t) -> Tuple[float, float]:
     return float(r_max), float(d_max)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Keep each element with probability ``1 - rate`` and scale it by
-    ``1 / (1 - rate)`` (Flax's ``nn.Dropout``); the mask is drawn from
-    ``generator``, which lies on ``x``'s device (the default generator
-    when None)."""
-    if rate == 0.0:
-        return x
-    keep = 1.0 - rate
-    if keep == 0.0:
-        return torch.zeros_like(x)
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(
-        keep, generator=generator)
-    return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
-
-
 class Hourglass(nn.Module):
     """Recursive hourglass: ``upper = res(x)``; ``lower = res(pool3x3/2(x))``
-    -> recurse -> ``res`` -> nearest x2 upsample; sum (requantized in a
-    calibrated int8 graph)."""
+    -> recurse -> ``res`` -> nearest x2 upsample, or with ``deconv_up`` a
+    learned stride-2 transposed convolution (``deconv_up``, float in every
+    form); sum (requantized in a calibrated int8 graph)."""
 
     def __init__(self, depth: int, ch: int, kernel_size: int = 3,
                  use_bn: bool = True, bn_epsilon: float = 1e-3,
                  bn_decay: float = 0.99, quantized: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, separable: bool = False,
+                 deconv_up: bool = False):
         super().__init__()
         self.kernel_size = kernel_size
         self.quantized, self.dtype = quantized, dtype
         res = lambda: Residual(ch, kernel_size=kernel_size, use_bn=use_bn,
                                bn_epsilon=bn_epsilon, bn_decay=bn_decay,
-                               quantized=quantized, dtype=dtype)
+                               quantized=quantized, dtype=dtype,
+                               separable=separable)
         self.upper = res()
         self.lower_in = res()
         self.inner = (Hourglass(depth - 1, ch, kernel_size, use_bn,
-                                bn_epsilon, bn_decay, quantized, dtype)
+                                bn_epsilon, bn_decay, quantized, dtype,
+                                separable, deconv_up)
                       if depth > 1 else None)
         self.lower_out = res()
+        self.deconv_up = (Deconv(ch, ch, kernel_size, 2, relu=False)
+                          if deconv_up else None)
         if quantized:
             self.calibrating = False
             self.register_buffer("out_amax", None)
@@ -89,7 +96,11 @@ class Hourglass(nn.Module):
         lower = self.lower_in(max_pool_same(x, self.kernel_size, 2, q), **kw)
         if self.inner is not None:
             lower = self.inner(lower, **kw)
-        up = upsample_nearest_2x(self.lower_out(lower, **kw), q)
+        lower = self.lower_out(lower, **kw)
+        if self.deconv_up is None:
+            up = upsample_nearest_2x(lower, q)
+        else:                        # dynamic int8 too: float, as in JAX
+            up = self.deconv_up(lower, channels_last=q)
         if not q:
             return upper + up
         return quantize_output(self, as_float(upper) + as_float(up),
@@ -97,7 +108,8 @@ class Hourglass(nn.Module):
 
 
 class DenseRegNet(nn.Module):
-    """The ``um_v1`` detector. ``forward(dms)`` takes normalized depth
+    """The detector, in the variant ``cfg.net_module`` names (one of
+    :data:`NET_MODULES`). ``forward(dms)`` takes normalized depth
     ``(b, H, W, 1)`` and returns ``{"hm": [...], "hm3": [...], "um": [...]}``,
     one float32 NHWC tensor per stack, ``(b, H/4, W/4, J | J | 3J)``.
 
@@ -108,10 +120,6 @@ class DenseRegNet(nn.Module):
 
     def __init__(self, cfg: NetConfig):
         super().__init__()
-        if cfg.net_module != "um_v1":
-            raise NotImplementedError(
-                f"net_module {cfg.net_module!r} is not ported yet; "
-                "densereg_torch builds 'um_v1' only")
         if cfg.quantize and not cfg.fold_bn:
             raise ValueError("an int8 net is a folded one: set fold_bn "
                              "(models.quantize.quantized_net_config)")
@@ -133,8 +141,12 @@ class DenseRegNet(nn.Module):
                 kw["out_use"] = use
             return ConvBR(in_ch, out_ch, k, **kw)
 
+        separable = cfg.net_module == "um_v1_lite"
+        deconv_up = cfg.net_module == "um_v1_deconv"
+
         def res(in_ch, out_ch=None):
-            return Residual(in_ch, out_ch, cfg.kernel_size, **bn)
+            return Residual(in_ch, out_ch, cfg.kernel_size, separable=separable,
+                            **bn)
 
         def head(in_ch, out_ch):
             return conv(in_ch, out_ch, 1, "f", use_bn=False, relu=False)
@@ -146,7 +158,9 @@ class DenseRegNet(nn.Module):
         for i in range(cfg.num_stack):
             s = f"_s{i}"
             layers = {
-                "hg": Hourglass(cfg.hourglass_depth, f, cfg.kernel_size, **bn),
+                "hg": Hourglass(cfg.hourglass_depth, f, cfg.kernel_size,
+                                separable=separable, deconv_up=deconv_up,
+                                **bn),
                 "ll_res": res(f),
                 "ll_conv": conv(f, f, 1, "both"),
                 "hm_head": head(f, j),

@@ -15,7 +15,9 @@ The int8 form (``quantized=True``, weights from
 ``models.quantize.quantize_weights``) runs channels-last: every convolution
 is one launch of the int8 kernel K3 (``ops.int8_gemm``), its dense entry
 over the activation itself for a 1x1 stride-1 convolution and its
-implicit-GEMM entry, which reads the activation in place, otherwise.
+implicit-GEMM entry, which reads the activation in place, otherwise; a
+depthwise one (``um_v1_lite``'s middle convolution) is one launch of the
+depthwise int8 kernel (``ops.int8_dwconv``).
 Activations are quantized per tensor: with the scale of an incoming
 :class:`QTensor`, else with the calibrated ``amax``, else with the batch's
 own ``max|x|`` (dynamic). A calibrated layer also quantizes its own output
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from densereg_torch.ops.int8_dwconv import int8_dwconv_requant, pack_dw_weight
 from densereg_torch.ops.int8_gemm import (
     int8_conv_requant,
     int8_gemm_requant,
@@ -186,11 +189,13 @@ class ConvBR(nn.Module):
     """conv -> [batch renorm | bias] -> [ReLU].
 
     ``quantized=True`` builds the int8 form instead: buffers ``kernel_q``
-    (HWIO int8), ``scale`` (per output channel, ``s_w``) and ``bias``, and
-    the calibration buffers ``amax`` and ``out_amax`` (None until
-    calibrated). It takes NHWC input, float or :class:`QTensor`, and runs
-    in ``dtype``; ``out_use`` (one of :data:`OUT_USES`) says which side of
-    a calibrated output its consumers read."""
+    (HWIO int8, ``(k, k, in / groups, out)``), ``scale`` (per output
+    channel, ``s_w``) and ``bias``, and the calibration buffers ``amax``
+    and ``out_amax`` (None until calibrated). It takes NHWC input, float or
+    :class:`QTensor`, and runs in ``dtype``; ``out_use`` (one of
+    :data:`OUT_USES`) says which side of a calibrated output its consumers
+    read. Its groups are 1, or depthwise (``groups == in_ch == out_ch``,
+    stride 1)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
                  stride: int = 1, use_bn: bool = True, relu: bool = True,
@@ -206,21 +211,23 @@ class ConvBR(nn.Module):
             self.bn = (BatchRenorm(out_ch, bn_epsilon, bn_decay) if use_bn
                        else None)
             return
-        if groups != 1 or use_bn:
+        self.depthwise = groups > 1
+        if use_bn or (self.depthwise and not (
+                groups == in_ch == out_ch and stride == 1)):
             raise NotImplementedError(
-                "the int8 ConvBR takes folded (bias) convolutions without "
-                "groups")
+                "the int8 ConvBR takes folded (bias) convolutions, without "
+                "groups or depthwise at stride 1")
         if out_use not in OUT_USES:
             raise ValueError(f"out_use must be one of {OUT_USES}")
         self.stride, self.out_use, self.dtype = stride, out_use, dtype
         self.calibrating = False
         self.register_buffer("kernel_q", torch.zeros(
-            (kernel, kernel, in_ch, out_ch), dtype=torch.int8))
+            (kernel, kernel, in_ch // groups, out_ch), dtype=torch.int8))
         self.register_buffer("scale", torch.ones(out_ch))
         self.register_buffer("bias", torch.zeros(out_ch))
         self.register_buffer("amax", None)
         self.register_buffer("out_amax", None)
-        self._w = None          # kernel_q packed for K3 (pack_weight)
+        self._w = None          # kernel_q packed for its kernel
         self._w_key = None
 
     def forward(self, x, r_max=None, d_max=None):
@@ -234,19 +241,25 @@ class ConvBR(nn.Module):
         return F.relu(x) if self.relu else x
 
     def _packed_weight(self) -> torch.Tensor:
-        """``kernel_q`` as K3's ``(N, k * k * Cp)`` operand
-        (``ops.int8_gemm.pack_weight``), made again whenever ``kernel_q``
-        moves or changes."""
+        """``kernel_q`` as its kernel's operand: K3's ``(N, k * k * Cp)``
+        (``ops.int8_gemm.pack_weight``) or the depthwise kernel's
+        ``(k * k, Cp)`` (``ops.int8_dwconv.pack_dw_weight``), made again
+        whenever ``kernel_q`` moves or changes."""
         key = (self.kernel_q.data_ptr(), self.kernel_q._version)
         if self._w_key != key:
-            self._w, self._w_key = pack_weight(self.kernel_q), key
+            pack = pack_dw_weight if self.depthwise else pack_weight
+            self._w, self._w_key = pack(self.kernel_q), key
         return self._w
 
     def _conv(self, x_q, scale, **kw):
-        """One K3 launch: the dense entry for a 1x1 stride-1 convolution,
-        the implicit GEMM otherwise. Returns ``(q, f)``, NHWC."""
+        """One kernel launch: the depthwise kernel, or K3's dense entry for
+        a 1x1 stride-1 convolution and its implicit GEMM otherwise. Returns
+        ``(q, f)``, NHWC."""
         k = self.kernel_q.shape[0]
         w = self._packed_weight()
+        if self.depthwise:
+            return int8_dwconv_requant(x_q, w, k, scale, self.bias,
+                                       relu=self.relu, **kw)
         if k > 1 or self.stride > 1:
             return int8_conv_requant(x_q, w, k, self.stride, scale,
                                      self.bias, relu=self.relu, **kw)
@@ -282,22 +295,26 @@ class ConvBR(nn.Module):
 class Residual(nn.Module):
     """Bottleneck residual: 1x1 (in/2) -> kxk (in/2) -> 1x1 (out), each
     conv + renorm + ReLU, plus the identity (or a 1x1 conv + renorm + ReLU
-    projection when the width changes). The sum has no activation."""
+    projection when the width changes). The sum has no activation.
+    ``separable`` (the ``um_v1_lite`` variant) makes the kxk convolution
+    depthwise (``groups = in/2``)."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
                  kernel_size: int = 3, use_bn: bool = True,
                  bn_epsilon: float = 1e-3, bn_decay: float = 0.99,
                  quantized: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 separable: bool = False):
         super().__init__()
         out_ch = in_ch if out_ch is None else out_ch
         half = in_ch // 2
         # int8: the inner convolutions feed convolutions, the last two the sum
-        conv = lambda i, o, k, use: ConvBR(
-            i, o, k, use_bn=use_bn, bn_epsilon=bn_epsilon, bn_decay=bn_decay,
-            quantized=quantized, out_use=use, dtype=dtype)
+        conv = lambda i, o, k, use, groups=1: ConvBR(
+            i, o, k, use_bn=use_bn, groups=groups, bn_epsilon=bn_epsilon,
+            bn_decay=bn_decay, quantized=quantized, out_use=use, dtype=dtype)
         self.conv1 = conv(in_ch, half, 1, "q")
-        self.conv2 = conv(half, half, kernel_size, "q")
+        self.conv2 = conv(half, half, kernel_size, "q",
+                          groups=half if separable else 1)
         self.conv3 = conv(half, out_ch, 1, "f")
         self.shortcut = (conv(in_ch, out_ch, 1, "f") if out_ch != in_ch
                          else None)

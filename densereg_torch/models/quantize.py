@@ -5,7 +5,9 @@ tree (``models.fold.fold_batch_norm``) into the int8 form that the
 ``quantized`` layers take:
 
 * weights: symmetric per output channel, ``kernel_q = round(k / s_w)``
-  with ``s_w = max|k| / 127`` over (h, w, in);
+  with ``s_w = max|k| / 127`` over (h, w, in) (over (h, w, 1) for a
+  depthwise kernel); a ``Deconv``'s transposed convolution
+  (``deconv_up/ConvTranspose_0``, no ``conv`` key) stays float, as in JAX;
 * activations: per-tensor symmetric scales, static once :func:`calibrate`
   has recorded each layer's running ``max|x|`` (the ``act_stats`` of the
   JAX package, buffers ``amax``/``out_amax`` here), else dynamic per
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from densereg_torch.config import NetConfig
+from densereg_torch.models.hourglass import refuse_calibrated_deconv
 
 
 def quantize_weights(folded_variables):
@@ -59,10 +62,13 @@ def calibrate(net: torch.nn.Module, batches: Iterable[torch.Tensor]):
     normalized depth (the net's input), as a running max that carries over
     from earlier calls. While a batch runs, each layer quantizes with that
     batch's own max, as the JAX package's calibration does. Afterwards the
-    net serves with static scales. Returns ``net``, updated in place."""
+    net serves with static scales. Returns ``net``, updated in place. A
+    ``um_v1_deconv`` net raises ``NotImplementedError``
+    (``models.hourglass.refuse_calibrated_deconv``)."""
     mods = [m for m in net.modules() if hasattr(m, "calibrating")]
     if not mods:
         raise ValueError("calibrate needs an int8 net (NetConfig.quantize)")
+    refuse_calibrated_deconv(net.cfg)
     try:
         for m in mods:
             m.calibrating = True

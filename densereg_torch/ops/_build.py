@@ -9,7 +9,10 @@ headers) and of the flags, so an edited source or header is rebuilt and
 never served stale.
 
 ``--fmad=false`` keeps multiplies and adds apart, as the plain versions
-compute them; ``--use_fast_math`` is deliberately absent.
+compute them; ``--use_fast_math`` is deliberately absent. The decode
+kernels add ``-ftz=true`` (:data:`SOURCE_FLAGS`): they flush subnormal
+float32 values to zero, as XLA and their plain version do; K3 keeps IEEE
+subnormals, as its plain version does.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+# flags of one source on top of NVCC_FLAGS
+SOURCE_FLAGS = {"fused_decode": ("-ftz=true",), "meanshift": ("-ftz=true",)}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -73,12 +79,17 @@ def local_headers(path: Path) -> Iterable[Path]:
     return list(seen)
 
 
+def flags(name: str):
+    """The nvcc flags that ``csrc/<name>.cu`` is built with."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = sources()[name]
     digest = hashlib.sha256(src.read_bytes())
     for dep in local_headers(src):
         digest.update(dep.name.encode() + b"\0" + dep.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -96,7 +107,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         procs[n] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(sources()[n])],
+            [nvcc, *flags(n), "-o", str(tmp), str(sources()[n])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
     failed = []
     for n, (proc, tmp) in procs.items():

@@ -139,6 +139,17 @@ def int8_gemm_requant_reference(x_q, w_q, scale, bias, s_y=None, *,
         acc = x_q.double() @ w_q.double()
     else:
         acc = x_q.long() @ w_q.long()
+    return requant_reference(acc, scale, bias, s_y, relu=relu,
+                             emit_q=emit_q, emit_f=emit_f, f_dtype=f_dtype)
+
+
+def requant_reference(acc, scale, bias, s_y=None, *, relu: bool = True,
+                      emit_q: bool = True, emit_f: bool = False,
+                      f_dtype=torch.bfloat16):
+    """The epilogue of the int8 kernels in plain torch, on exact integer
+    sums ``acc`` (any integer or float64 dtype) with the channels last:
+    ``y = relu?(float32(acc) * scale + bias)``, each operation rounded once,
+    then ``(q, f)`` as :func:`int8_gemm_requant` returns them."""
     y = acc.float() * scale.float()
     y = y + bias.float()
     if relu:

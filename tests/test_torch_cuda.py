@@ -15,7 +15,10 @@ rounded exponential against the CPU's float ``exp``, within 1 ulp. The int8 GEMM
 ``q`` bit-identical and ``f`` within 1 ulp of its plain version on the
 card, whose float64 product is exact; the same for its implicit-GEMM
 convolution entry against im2col and the plain GEMM; an int8 net on K3
-equal to the same net on the CPU.
+equal to the same net on the CPU. The depthwise int8 convolution: the same
+standard as K3, on both of its load paths, and the lite int8 net on it and
+K3 equal to the CPU's. The subnormal scene (``decode_subnormal_scene``):
+K1 and K2 flush as the plain decode does.
 """
 
 import pytest
@@ -33,6 +36,7 @@ from chip_smoke import (  # noqa: E402
     as_served,
     decode_edge_scene,
     decode_scene,
+    decode_subnormal_scene,
     nan_equal_err,
     plain_on_cpu,
     vote_edge_cases,
@@ -40,6 +44,7 @@ from chip_smoke import (  # noqa: E402
 from densereg_torch import decode  # noqa: E402
 from densereg_torch.models import layers  # noqa: E402
 from densereg_torch.ops import fused_decode as ops  # noqa: E402
+from densereg_torch.ops import int8_dwconv as dw  # noqa: E402
 from densereg_torch.ops import int8_gemm as k3  # noqa: E402
 from densereg_torch.ops import meanshift as k2  # noqa: E402
 
@@ -123,6 +128,25 @@ def test_fused_decode_edge_cases(cuda, layout):
     assert nan_equal_err(got, plain_on_cpu(args)) <= 6e-6
     assert torch.equal(got[3, 0], torch.full((3,), 0.75))
     assert torch.isnan(got[4, 1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(K1_PATH))
+def test_fused_decode_subnormal_scene(cuda, layout):
+    """Joints whose Gaussian weights fall in float32's subnormal range:
+    K1 flushes them as the plain decode (and XLA) does, within 6e-6; those
+    whose weights all underflow keep their start. Then K2 on the same
+    candidates and weights."""
+    scene = decode_subnormal_scene(np.random.default_rng(0), 8, 32, 32, 16)
+    args = as_served(scene, cuda, layout)
+    want = plain_on_cpu(args)
+    got = ops.fused_decode(*args).cpu()
+    assert (got - want).abs().max().item() <= 6e-6
+    _, cans, weights = decode.decode_plain(*(t.cpu() for t in args))
+    want = decode.weighted_mean_shift(cans, weights, 10, 0.4)
+    got = k2.weighted_mean_shift_cuda(cans.to(cuda), weights.to(cuda), 10,
+                                      0.4).cpu()
+    assert (got - want).abs().max().item() <= 6e-6
 
 
 @pytest.mark.cuda
@@ -337,6 +361,120 @@ def test_int8_conv_refuses_what_it_cannot_take(cuda, monkeypatch):
     k3.int8_conv_requant(x, w, 3, 1, sc, b, 1.0)
     torch.cuda.synchronize()
     assert k3.int8_gemm_requant.launches == before + 1
+
+
+# (C, h = w): every depthwise convolution of the s2/f128 lite int8 net (the
+# stem's 16 and 32 channels, the hourglass's 64 down to its 2x2 maps, the
+# heads' 65, 80, 128 and 256), and an odd map
+DW_SHAPES = [(16, 64), (32, 32), (64, 32), (64, 16), (64, 8), (64, 4),
+             (64, 2), (65, 32), (80, 32), (128, 32), (256, 32), (80, 9)]
+
+
+def _dw_operands(rng, c, k, device):
+    kern = torch.from_numpy(rng.integers(-127, 128, (k, k, 1, c)).astype(
+        np.int8)).to(device)
+    sc = torch.from_numpy((rng.uniform(0.5, 1.5, c) / (127.0 * 127.0 * k))
+                          .astype(np.float32)).to(device)
+    b = torch.from_numpy(rng.uniform(-0.5, 0.5, c).astype(np.float32)).to(
+        device)
+    return dw.pack_dw_weight(kern), sc, b, torch.tensor(0.01, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hw", DW_SHAPES,
+                         ids=[f"c{c}-{hw}" for c, hw in DW_SHAPES])
+def test_int8_dwconv_matches_plain(cuda, c, hw):
+    """The depthwise kernel against its plain version on the card, at batch
+    3: the vector path on pixels 16 bytes apart with random bytes in their
+    pitch (and a transposed view of them), the scalar path on a contiguous
+    tensor of C = 65 and on channels two bytes apart; q bit-identical, f within 1 ulp, one launch a call,
+    q's pixels 16 bytes apart."""
+    rng = np.random.default_rng(c * 7 + hw)
+    w, sc, b, sy = _dw_operands(rng, c, 3, cuda)
+    pitched = _pitched(rng, (3, hw, hw), c, cuda)
+    spread = torch.zeros((3, hw, hw, c, 2), dtype=torch.int8, device=cuda)
+    spread[..., 0] = pitched
+    inputs = [pitched, pitched.permute(0, 2, 1, 3),   # vector path
+              pitched.contiguous(),        # vector where C % 16 == 0
+              spread[..., 0]]              # channels 2 bytes apart: scalar
+    for x in inputs:
+        for relu in (True, False):
+            for emit in ((True, False), (False, True), (True, True)):
+                for f_dtype in (torch.float32, torch.bfloat16):
+                    kw = dict(relu=relu, emit_q=emit[0], emit_f=emit[1],
+                              f_dtype=f_dtype)
+                    before = dw.int8_dwconv_requant.launches
+                    got = dw.int8_dwconv_requant(x, w, 3, sc, b, sy, **kw)
+                    want = dw.int8_dwconv_requant_reference(x, w, 3, sc, b,
+                                                            sy, **kw)
+                    torch.cuda.synchronize()
+                    assert dw.int8_dwconv_requant.launches == before + 1
+                    for t in got:
+                        assert t is None or t.shape == x.shape
+                    if got[0] is not None:
+                        assert got[0].stride(2) == -(-c // 16) * 16
+                    _assert_matches_plain(got, want)
+    assert len(torch.unique(got[0])) > 20        # the steps are exercised
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5])
+def test_int8_dwconv_other_windows(cuda, k):
+    rng = np.random.default_rng(k)
+    w, sc, b, sy = _dw_operands(rng, 65, k, cuda)
+    x = _pitched(rng, (2, 11, 7), 65, cuda)
+    kw = dict(emit_q=True, emit_f=True, f_dtype=torch.float32)
+    _assert_matches_plain(dw.int8_dwconv_requant(x, w, k, sc, b, sy, **kw),
+                          dw.int8_dwconv_requant_reference(x, w, k, sc, b,
+                                                           sy, **kw))
+
+
+@pytest.mark.cuda
+def test_int8_dwconv_refuses_what_it_cannot_take(cuda, monkeypatch):
+    """A window it is not built for raises; a launch the C entry refuses
+    (k = 7, with the wrapper's check lifted) raises and counts nothing;
+    operands on two devices raise."""
+    rng = np.random.default_rng(4)
+    w, sc, b, sy = _dw_operands(rng, 32, 7, cuda)
+    x = _pitched(rng, (1, 9, 9), 32, cuda)
+    with pytest.raises(NotImplementedError, match="built"):
+        dw.int8_dwconv_requant(x, w, 7, sc, b, sy)
+    monkeypatch.setattr(dw, "KERNEL_SIZES", (1, 3, 5, 7))
+    before = dw.int8_dwconv_requant.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dw.int8_dwconv_requant(x, w, 7, sc, b, sy)
+    assert dw.int8_dwconv_requant.launches == before
+    with pytest.raises(ValueError, match="one device"):
+        dw.int8_dwconv_requant(x, w.cpu(), 7, sc, b, sy)
+
+
+@pytest.mark.cuda
+def test_int8_lite_net_card_matches_cpu(cuda):
+    """A calibrated int8 ``um_v1_lite`` net, every depthwise convolution
+    on the depthwise kernel and every other on K3, against the same net on
+    the CPU: heads and every int8 step equal; one depthwise launch a
+    residual."""
+    from chip_smoke import int8_net, int8_steps
+    from densereg_torch import NetConfig
+    from densereg_torch.models import init_variables
+    from densereg_torch.models.bridge import seeded_depth
+
+    cfg = NetConfig(num_stack=2, num_fea=32, num_joint=14, input_hw=(64, 64),
+                    net_module="um_v1_lite")
+    variables = init_variables(cfg, seed=1)
+    x = torch.from_numpy(seeded_depth(np.random.default_rng(2), 3, 64, 64))
+    cpu = int8_net(variables, cfg, "cpu", x)
+    card = int8_net(variables, cfg, cuda, x)
+    before = dw.int8_dwconv_requant.launches
+    want, q_want = int8_steps(cpu, x)
+    got, q_got = int8_steps(card, x.to(cuda))
+    residuals = sum(isinstance(m, layers.Residual) for m in card.modules())
+    assert dw.int8_dwconv_requant.launches == before + residuals
+    for key in want:
+        for g, w in zip(got[key], want[key]):
+            assert torch.equal(g, w), key
+    assert q_got.keys() == q_want.keys()
+    assert all(torch.equal(q_got[k], q) for k, q in q_want.items())
 
 
 @pytest.mark.cuda
