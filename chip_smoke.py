@@ -74,11 +74,35 @@ Phases, each printed as one JSON line:
    on the two), with the stages of a dispatch; the
    calibrated deconv net refused; ``train()`` in float32 at 40 x 5 for a
    few steps validating on K1; one ``test()`` on 300 frames.
+10. ``tooling``, the training tooling at s2/f128/J16 on phase 7's shards,
+   on counts of its own: one 40 x 5 step with and without ``remat`` from
+   one state and generator seed, dropout on (loss, gradients, moving
+   statistics, the generator's end state; peak memory and samples/s of
+   each); ``make_fused_train_step`` against the pipeline's crop and
+   ``train_step``, 3 steps from one state (the parameters; the fused
+   step's samples/s); ``train()`` with scalars, histograms, validation and
+   the profiler firing within 6 steps (``debug_level=0``), its event file
+   read back (the histograms under the Flax key paths) and its Chrome
+   trace checked for kernel events; ``_train_debug_images`` on the card;
+   the host crop in float32 and on the uint16 wire against the card's crop
+   (the wire's bound), in ``train()`` and in ``test()`` (result lines
+   compared, joints off named with their decode flips).
+11. ``daemon``, the serving daemon (``densereg_torch.serve``) on a Unix
+   socket over the float32 and the calibrated int8 ``Predictor`` at
+   ``max_batch`` 256, each with 4 concurrent clients of 1,024 uint16
+   frames, pipelined, on counts of their own: no error reply, every
+   request answered, K1 once a batch, K3 once a convolution of each int8
+   forward; the answers against a direct ``Predictor`` call (joints off by
+   more than 1e-3 mm counted as decode flips), frames/s, the latency
+   percentiles and frames per batch of ``stats()``, the batcher's host
+   time a dispatch; the same clients against a predictor that does no
+   work (the daemon's own ceiling); then a flood of 1,024 requests against
+   a queue of 256 (the sheds).
 
 Then a ``kernels`` line (``train_launches``, ``eval_launches``,
-``variants_launches``: each kernel's launches in phases 7, 8 and 9; the
-depthwise kernel's ``launches`` are phase 9's), the card's ``nvidia-smi``
-name and power limit, and
+``variants_launches``, ``tooling_launches``, ``daemon_launches``: each
+kernel's launches in phases 7 to 11; the depthwise kernel's ``launches``
+are phase 9's), the card's ``nvidia-smi`` name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or when any phase fails, it exits non-zero and prints no result.
 """
@@ -95,6 +119,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -119,6 +144,7 @@ from densereg_torch.models import (
     init_train_variables,
     init_variables,
     quantize_weights,
+    to_flax,
 )
 from densereg_torch.models import layers
 from densereg_torch.models import ops as net_ops
@@ -134,10 +160,24 @@ from densereg_torch.preprocess import (
     crop_from_bbx,
     method2_resize,
     norm_dm,
+    preprocess_batch_from_pose,
 )
-from densereg_torch.train import create_train_state, train, train_step
+from densereg_torch.serve import Client, Server
+from densereg_torch.train import (
+    create_train_state,
+    make_fused_train_step,
+    train,
+    train_step,
+)
+from densereg_torch.train.loop import (
+    _make_debug_fn,
+    _train_debug_images,
+    _tree_tags,
+)
 from densereg_torch.train.loop import test as test_driver
 from densereg_torch.utils.profiling import PhaseTimer
+from densereg_torch.utils.tb import EventWriter, read_events
+from densereg_torch.wire import error_bound as wire_error_bound
 
 SEED = 0
 ICVL = CameraConfig(fx=241.42, fy=241.42, cx=160.0, cy=120.0, w=320.0,
@@ -1491,7 +1531,7 @@ def phase_train_run(spec, val, net_cfg: NetConfig, dtype: str, root: str,
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         state = train(spec, cfg, tcfg, val_spec=val, max_steps=TRAIN_STEPS,
-                      device=device, log_fn=quiet)
+                      debug_level=0, device=device, log_fn=quiet)
     train_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     with open(os.path.join(train_dir, "metrics.jsonl")) as f:
@@ -1499,8 +1539,8 @@ def phase_train_run(spec, val, net_cfg: NetConfig, dtype: str, root: str,
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         resumed = train(spec, cfg, tcfg, val_spec=val,
-                        max_steps=TRAIN_STEPS + RESUME_STEPS, device=device,
-                        restore_step="auto", log_fn=quiet)
+                        max_steps=TRAIN_STEPS + RESUME_STEPS, debug_level=0,
+                        device=device, restore_step="auto", log_fn=quiet)
     resume_s = time.perf_counter() - t0
     with open(os.path.join(train_dir, "best.json")) as f:
         best = json.load(f)
@@ -1653,14 +1693,16 @@ def eval_profile(spec, cfg: NetConfig, base_dir: str, device, top: int = 10,
     return {"wall_ms": wall_ms, **device_time(prof, wall_ms, top)}
 
 
-def eval_heads(net, spec, n: int, device):
+def eval_heads(net, spec, n: int, device, **pipe_kw):
     """The decode's inputs for the first ``n`` frames of ``spec``, as
-    ``test()`` computes them, on the CPU."""
+    ``test()`` computes them (``pipe_kw``: the test pipeline's
+    host-preprocess options), on the CPU."""
     out_h, out_w = net.cfg.output_hw
     parts = []
     with torch.inference_mode():
         for batch in FramePipeline(spec, EvalConfig().batch_size,
-                                   net.cfg.input_hw, device=device):
+                                   net.cfg.input_hw, device=device,
+                                   **pipe_kw):
             normed = norm_dm(batch["dm"], batch["com"])
             outs = net(normed)
             tiny = method2_resize(normed, out_h, out_w)
@@ -1696,12 +1738,24 @@ def eval_card_vs_cpu(xyz_card, xyz_cpu, variables, net_cfg: NetConfig, spec,
     mean shift that cancelled on either device's heads
     (``decode_cancelled``). The off joints are listed with their causes."""
     n = len(xyz_cpu)
-    gap = np.abs(xyz_card[:n] - xyz_cpu).reshape(n, -1, 3).max(axis=-1)
-    off = gap > XYZ_TOL_MM + RESULT_ROUNDING_MM
+    return joints_off(
+        xyz_card[:n], xyz_cpu, XYZ_TOL_MM + RESULT_ROUNDING_MM,
+        lambda: [eval_heads(from_flax(variables, net_cfg).to(d), spec, n, d)
+                 for d in (device, "cpu")])
+
+
+def joints_off(xyz_a, xyz_b, tol: float, heads_fn):
+    """Result lines ``xyz_a`` against ``xyz_b``: the joints further apart
+    than ``tol`` mm, each with its causes, from the two runs' heads
+    (``heads_fn()``, CPU tensors, computed only when a joint is off): a
+    discontinuity of the plain decode between them (``decode_flips``) or a
+    mean shift that cancelled on either (``decode_cancelled``)."""
+    n = len(xyz_b)
+    gap = np.abs(xyz_a - xyz_b).reshape(n, -1, 3).max(axis=-1)
+    off = gap > tol
     flips = cancelled = np.zeros_like(off)
     if off.any():
-        heads = [eval_heads(from_flax(variables, net_cfg).to(d), spec, n, d)
-                 for d in (device, "cpu")]
+        heads = heads_fn()
         ecfg = EvalConfig()
         flips = decode_flips(heads[1], heads[0], ecfg).numpy()
         cancelled = (decode_cancelled(heads[0], ecfg)
@@ -2000,7 +2054,8 @@ def train_variant(spec, val, cfg: NetConfig, root: str, device):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         train(spec, cfg, tcfg, val_spec=val, max_steps=VARIANT_TRAIN_STEPS,
-              net_name=cfg.net_module, device=device, log_fn=lambda *_: None)
+              net_name=cfg.net_module, debug_level=0, device=device,
+              log_fn=lambda *_: None)
     train_s = time.perf_counter() - t0
     launches = read_counts()
     with open(os.path.join(train_dir, "metrics.jsonl")) as f:
@@ -2091,6 +2146,560 @@ def phase_variants(trees, net_cfg: NetConfig, device, root: str,
               "seconds": time.perf_counter() - t0})
     return {**total, "fused_decode_by_path": k1_paths}
 
+# --------------------------------------------------------------------------
+# tooling: remat, the fused step, observability, host preprocess and wire
+# --------------------------------------------------------------------------
+
+TOOLING_TIMED_STEPS = 3
+OBS_STEPS = 6
+
+
+def first_batch(spec, cfg: NetConfig, tcfg: TrainConfig, device, seed=SEED,
+                **kw):
+    """The first batch of ``InputPipeline`` (``kw``: its host-preprocess
+    options)."""
+    pipe = InputPipeline(spec, tcfg.batch_size, tcfg.sub_batch, cfg.input_hw,
+                         seed=seed, device=device, **kw)
+    try:
+        return next(iter(pipe))
+    finally:
+        pipe.close()
+
+
+def check_on_card(tensors, what: str) -> None:
+    for t in tensors:
+        check(t.is_cuda, f"{what}: a tensor on {t.device}, not the card")
+
+
+def timed_steps(state, batch, cfg: NetConfig, tcfg: TrainConfig, device,
+                steps: int = TOOLING_TIMED_STEPS):
+    """Samples/s (host clock, the device synchronised) and peak memory of
+    ``steps`` train steps on one batch, after one more."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 8)
+    train_step(state, batch, cfg, tcfg, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        train_step(state, batch, cfg, tcfg, gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"steps": steps, "step_ms": dt / steps * 1e3,
+            "samples_per_s": steps * tcfg.batch_size * tcfg.sub_batch / dt,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def tooling_remat(spec, cfg: NetConfig, device):
+    """One 40 x 5 step with and without ``remat`` from the same state and
+    generator seed (augmentation on, dropout 0.5): the loss, each averaged
+    gradient (relative norm), the moving statistics and the generator's
+    state; then the peak memory and samples/s of each."""
+    tcfg = TrainConfig()
+    variables = init_train_variables(cfg, SEED)
+    batch = first_batch(spec, cfg, tcfg, device)
+    out = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        state = create_train_state(c, tcfg, 100.0, variables=variables,
+                                   device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 9)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m = train_step(state, batch, c, tcfg, gen, with_grads=True)
+        out[remat] = {
+            "loss": float(m["loss"]),
+            "grads": {k: g.double() for k, g in m["grads"].items()},
+            "stats": {k: v.clone() for k, v in state.net.state_dict().items()
+                      if k.endswith((".mean", ".var"))},
+            "generator": gen.get_state(),
+            "first_step_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "speed": timed_steps(state, batch, c, tcfg, device)}
+        check_on_card(list(state.net.parameters()), "remat")
+        del state, m
+        torch.cuda.empty_cache()
+    plain, remat = out[False], out[True]
+    grad_rel = {k: float((remat["grads"][k] - g).norm() / (g.norm() + 1e-30))
+                for k, g in plain["grads"].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    stats_excess = max(float(((remat["stats"][k] - v).abs()
+                              - (STATS_ATOL + STATS_RTOL * v.abs())).max())
+                       for k, v in plain["stats"].items())
+    row = {"loss": plain["loss"], "loss_remat": remat["loss"],
+           "loss_rel_diff": abs(remat["loss"] - plain["loss"])
+           / abs(plain["loss"]),
+           "max_grad_rel_norm": grad_rel[worst], "worst_param": worst,
+           "grads_bit_equal": sum(v == 0.0 for v in grad_rel.values()),
+           "params": len(grad_rel),
+           "stats_max_abs_diff": max(
+               float((remat["stats"][k] - v).abs().max())
+               for k, v in plain["stats"].items()),
+           "stats_max_excess_over_tol": stats_excess,
+           "generator_state_equal": bool(torch.equal(plain["generator"],
+                                                     remat["generator"])),
+           "first_step_peak_gib": {"plain": plain["first_step_peak_gib"],
+                                   "remat": remat["first_step_peak_gib"]},
+           "timed": {"plain": plain["speed"], "remat": remat["speed"]}}
+    check(np.isfinite(remat["loss"]) and row["loss_rel_diff"] <= LOSS_RTOL,
+          f"remat: loss {remat['loss']} against {plain['loss']}")
+    check(grad_rel[worst] <= GRAD_REL_TOL,
+          f"remat: gradient of {worst} off by {grad_rel[worst]}")
+    check(stats_excess <= 0.0, f"remat: moving statistics off by "
+                               f"{stats_excess} over the tolerance")
+    check(row["generator_state_equal"], "remat: the generator ends the step "
+                                        "elsewhere than without remat")
+    return row
+
+
+def tooling_fused(spec, cfg: NetConfig, device, steps: int = 3):
+    """``make_fused_train_step`` against the pipeline's crop
+    (``preprocess_batch_from_pose`` on the card, the ``(sub, batch)``
+    layout) followed by ``train_step``: ``steps`` steps at 40 x 5 from one
+    state and generator seed on the same raw uint16 frames. Held: each
+    step's loss (``LOSS_RTOL``) and the first step's averaged gradients
+    (``GRAD_REL_TOL``, the card-vs-CPU limits: the card's backward sums in
+    an order of its own, run to run). Reported: the parameters after the
+    last step, each by the relative norm of its difference to how far it
+    moved (Adam's first steps turn a near-zero gradient's sign into
+    +-lr); then the fused step's samples/s."""
+    tcfg = TrainConfig()
+    sub, b = tcfg.sub_batch, tcfg.batch_size
+    h, w = cfg.input_hw
+    readers = spec.readers()
+    frames = np.concatenate([r["depth"] for r in readers])
+    take = np.arange(sub * b) % len(frames)       # repeats a small split
+    frames = frames[take][..., None]
+    poses = np.concatenate([r["pose"] for r in readers])[take]
+    frames_d = torch.from_numpy(frames).to(device)
+    poses_d = torch.from_numpy(poses.astype(np.float32)).to(device)
+    cam = spec.cfg.as_array(device=device)
+    variables = init_train_variables(cfg, SEED)
+    two = create_train_state(cfg, tcfg, 100.0, variables=variables,
+                             device=device)
+    fused = create_train_state(cfg, tcfg, 100.0, variables=variables,
+                               device=device)
+    start = {k: p.detach().clone() for k, p in two.net.named_parameters()}
+    gens = [torch.Generator(device=device) for _ in range(2)]
+    for g in gens:
+        g.manual_seed(SEED + 10)
+    fn = make_fused_train_step(cfg, tcfg, spec.cfg, spec.fixed_bg_threshold)
+    losses, grad_rel = [], None
+    for i in range(steps):
+        dm, pose, cfgs, coms = preprocess_batch_from_pose(
+            frames_d, poses_d, cam, h, w, spec.fixed_bg_threshold)
+        batch = {"dm": dm.reshape(sub, b, h, w, 1),
+                 "pose": pose.reshape(sub, b, -1),
+                 "cfg": cfgs.reshape(sub, b, 6),
+                 "com": coms.reshape(sub, b, 3)}
+        m_two = train_step(two, batch, cfg, tcfg, gens[0], with_grads=i == 0)
+        m_fused = fn(fused, frames_d, poses_d, gens[1], with_grads=i == 0)
+        losses.append((float(m_two["loss"]), float(m_fused["loss"])))
+        if i == 0:
+            grad_rel = {k: float((m_fused["grads"][k].double() - g.double())
+                                 .norm() / (g.double().norm() + 1e-30))
+                        for k, g in m_two["grads"].items()}
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    loss_rel = max(abs(f - t) / abs(t) for t, f in losses)
+    a = dict(two.net.named_parameters())
+    with torch.no_grad():
+        rel = {k: float((p - a[k]).norm()
+                        / ((a[k] - start[k]).norm() + 1e-30))
+               for k, p in fused.net.named_parameters()}
+    worst = max(rel, key=rel.get)
+    check_on_card(list(fused.net.parameters()), "fused step")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TOOLING_TIMED_STEPS):
+        fn(fused, frames_d, poses_d, gens[1])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    speed = {"steps": TOOLING_TIMED_STEPS,
+             "step_ms": dt / TOOLING_TIMED_STEPS * 1e3,
+             "samples_per_s": TOOLING_TIMED_STEPS * sub * b / dt}
+    row = {"steps": steps, "losses_pipeline_fused": losses,
+           "max_loss_rel_diff": loss_rel,
+           "first_step_max_grad_rel_norm": grad_rel[worst_grad],
+           "first_step_worst_grad": worst_grad,
+           "first_step_grads_bit_equal": sum(v == 0.0
+                                             for v in grad_rel.values()),
+           "params_bit_equal": sum(v == 0.0 for v in rel.values()),
+           "params": len(rel), "max_param_rel_to_update": rel[worst],
+           "worst_param": worst, "fused": speed}
+    check(bool(np.isfinite(losses).all()) and loss_rel <= LOSS_RTOL,
+          f"fused step: losses (pipeline, fused) {losses}")
+    check(grad_rel[worst_grad] <= GRAD_REL_TOL,
+          f"fused step: first step's gradient of {worst_grad} off by "
+          f"{grad_rel[worst_grad]}")
+    return row
+
+
+def tooling_observability(spec, val, cfg: NetConfig, root: str, device):
+    """``train()`` for ``OBS_STEPS`` steps with scalars every 2, histograms
+    and validation every 3 and the profiler on step 2, ``debug_level=0``;
+    its event file read back with the port's ``read_events`` (scalar,
+    ``val/`` and histogram records, the histograms under the Flax key paths
+    in order), its Chrome trace checked for kernel events; then
+    ``_train_debug_images`` on the card into an event file of its own."""
+    tcfg = TrainConfig(base_dir=os.path.join(root, "obs"), summary_every=2,
+                       histogram_every=3, validate_every=3,
+                       profile_dir=os.path.join(root, "trace"),
+                       profile_start=2, profile_steps=1)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = train(spec, cfg, tcfg, val_spec=val, max_steps=OBS_STEPS,
+                      debug_level=0, device=device, log_fn=lambda *_: None)
+    train_s = time.perf_counter() - t0
+    run = os.path.join(tcfg.base_dir, model_desc(spec.name, spec.subset, cfg,
+                                                 tcfg.augment))
+    (path,) = glob.glob(os.path.join(run, "summary", "events.out.tfevents.*"))
+    records = [(e["step"], v) for e in read_events(path)
+               for v in e.get("values", [])]
+    scalars = [(s, v["tag"]) for s, v in records if "simple_value" in v]
+    hists = [(s, v["tag"]) for s, v in records if "histo" in v]
+    flax_params = _tree_tags(to_flax(state.net)["params"])
+    want_hist = [(s, f"{kind}/{tag}") for s in (0, 3)
+                 for kind in ("params", "grads") for tag, _ in flax_params]
+    metric_tags = ["grad_norm", "hm3_loss", "hm_loss", "loss", "param_norm",
+                   "reg_loss", "um_loss", "learning_rate"]
+    want_scalars = [(s, t) for s in range(0, OBS_STEPS)
+                    for t in (metric_tags if s % 2 == 0 else [])
+                    + (["val/max_joint_error"] if s % 3 == 0 else [])]
+    (trace,) = glob.glob(os.path.join(tcfg.profile_dir, "*.json"))
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+
+    events_dir = os.path.join(root, "debug_images")
+    writer = EventWriter(events_dir)
+    batch = first_batch(spec, cfg, TrainConfig(), device, seed=SEED + 12)
+    check_on_card([batch["dm"]] + list(state.net.parameters()),
+                  "debug images")
+    _train_debug_images(_make_debug_fn(cfg), state, batch, writer, 0)
+    writer.close()
+    images = [v["tag"] for e in read_events(writer.path)
+              for v in e.get("values", []) if "image" in v]
+    row = {"train_s": train_s, "steps": OBS_STEPS, "records": len(records),
+           "scalar_records": len(scalars), "histogram_records": len(hists),
+           "histogram_tags_first": [t for _, t in hists[:3]],
+           "trace_mb": os.path.getsize(trace) / 2 ** 20,
+           "trace_events": len(events), "trace_kernel_events": len(kernels),
+           "debug_image_tags": images}
+    check(scalars == want_scalars,
+          f"event file scalars {scalars[:12]}... against {want_scalars[:12]}")
+    check(hists == want_hist, f"event file histograms: {len(hists)} "
+                              f"records, {len(want_hist)} expected, first "
+                              f"{hists[:2]} against {want_hist[:2]}")
+    check(len(kernels) > 0, f"profiler trace {trace}: no kernel events "
+                            f"among {len(events)}")
+    want_images = [f"train/0/{t}" for t in (
+        "dm", "hm_gt", "hm_est", "hm3_gt", "hm3_est", "um_xy_gt",
+        "um_xy_est")]
+    check(images == want_images, f"debug images: {images}")
+    return row
+
+
+def tooling_wire(spec, cfg: NetConfig, variables, root: str, device):
+    """The host-preprocess paths at full size: the first 40 x 5 batch cropped
+    on the host in float32 and on the uint16 wire against the card's crop
+    (the wire within its bound, ``wire_error_bound``, of the host crop
+    it encodes, the host's float32 crop within it of the card's, the wire
+    within the sum of both of the card's); ``train()`` for 3
+    steps in each against the device-crop run (first loss); ``test()`` on
+    64 frames in each, whose result lines are compared with the device-crop
+    run's (0.02 mm in float32, held; 0.05 mm on the wire, the JAX package's
+    budget for it, reported), joints further off named with their decode
+    flips."""
+    tcfg = TrainConfig()
+    crops = {"device": first_batch(spec, cfg, tcfg, device)}
+    for wire in ("float32", "uint16"):
+        crops[wire] = first_batch(spec, cfg, tcfg, device,
+                                  host_preprocess=True, wire_dtype=wire)
+        check_on_card(crops[wire].values(), f"host preprocess {wire}")
+    bound = wire_error_bound(float(crops["float32"]["dm"].max()))
+    gap = lambda a, b, k="dm": float((crops[a][k] - crops[b][k]).abs().max())
+    # the wire against the host's float32 crop it encodes; the host's crop
+    # against the card's (two devices' rounding); the wire against the card
+    # within the sum of the two
+    row = {"wire_bound_mm": bound,
+           "crop_uint16_vs_float32_host_mm": gap("uint16", "float32"),
+           "crop_float32_host_vs_card_mm": gap("float32", "device"),
+           "crop_uint16_host_vs_card_mm": gap("uint16", "device"),
+           "com_float32_host_vs_card_mm": gap("float32", "device", "com"),
+           "background_equal": all(torch.equal(crops[w]["dm"] == 0,
+                                               crops["device"]["dm"] == 0)
+                                   for w in ("float32", "uint16"))}
+    check(row["crop_uint16_vs_float32_host_mm"] <= bound
+          and row["crop_float32_host_vs_card_mm"] <= bound
+          and row["crop_uint16_host_vs_card_mm"]
+          <= bound + row["crop_float32_host_vs_card_mm"]
+          and row["background_equal"],
+          f"host preprocess: crops against the wire's bound {bound}: {row}")
+    losses = {}
+    for name, kw in (("device", {}),
+                     ("float32", dict(host_preprocess=True)),
+                     ("uint16", dict(host_preprocess=True,
+                                     wire_dtype="uint16"))):
+        t = TrainConfig(base_dir=os.path.join(root, "wire", name),
+                        summary_every=1, histogram_every=0, **kw)
+        with contextlib.redirect_stdout(io.StringIO()):
+            train(spec, cfg, t, max_steps=3, debug_level=0, device=device,
+                  log_fn=lambda *_: None)
+        run = os.path.join(t.base_dir, model_desc(spec.name, spec.subset,
+                                                  cfg, t.augment))
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses[name] = [r["loss"] for r in rows]
+        check(len(rows) == 3 and all(np.isfinite(losses[name])),
+              f"train with {name} crop: {losses[name]}")
+    row["train_losses"] = losses
+    row["train_first_loss_rel_diff"] = {
+        k: abs(losses[k][0] - losses["device"][0]) / abs(losses["device"][0])
+        for k in ("float32", "uint16")}
+    check(row["train_first_loss_rel_diff"]["float32"] <= LOSS_RTOL,
+          f"train with the host crop: first loss {losses['float32'][0]} "
+          f"against {losses['device'][0]}")
+
+    test_spec = synthetic.make_spec(
+        "testing", directory=os.path.join(root, "wire", "data"),
+        num_shards=2, samples_per_shard=32, seed=SEED + 3)
+    payload = os.path.join(root, "wire", "params.msgpack")
+    save_converted({**variables, "renorm_t": 0.0}, payload)
+    results = {}
+    for name, kw in (("device", {}),
+                     ("float32", dict(host_preprocess=True)),
+                     ("uint16", dict(host_preprocess=True,
+                                     wire_dtype="uint16"))):
+        report, names, xyz, _ = run_test(
+            test_spec, cfg, os.path.join(root, "wire", "test_" + name),
+            device, ecfg=EvalConfig(batch_size=32, **kw),
+            init_params=payload)
+        results[name] = (names, xyz)
+        row[f"test_{name}_frames_per_s"] = report["fps"]
+    net = from_flax(variables, cfg)
+    for name, tol in (("float32", XYZ_TOL_MM), ("uint16", 0.05)):
+        names, xyz = results[name]
+        check(names == results["device"][0],
+              f"test with the {name} host crop: result names differ")
+        pipe_kw = dict(host_preprocess=True, wire_dtype=name)
+        report = joints_off(
+            xyz, results["device"][1], tol + RESULT_ROUNDING_MM,
+            lambda: [eval_heads(net.to(device), test_spec, len(xyz), device,
+                                **kw) for kw in (pipe_kw, {})])
+        row[f"test_{name}_vs_device_crop"] = report
+        check(bool(np.isfinite(xyz).all()),
+              f"test with the {name} host crop: non-finite xyz")
+    # the float32 host crop is the card's crop up to the rounding of the two
+    # devices; the wire moves each depth by up to its bound, which a random
+    # net's ill-conditioned mean shifts amplify: reported, with the causes
+    off = row["test_float32_vs_device_crop"]["joints_off_unexplained"]
+    check(off == 0, f"test with the float32 host crop: {off} joints off "
+                    f"with no decode flip and no cancelled mean shift: "
+                    f"{row['test_float32_vs_device_crop']['off']}")
+    return row
+
+
+def phase_tooling(variables, net_cfg: NetConfig, device, root: str,
+                  train_root: str):
+    """The training tooling on counts of its own (see the module's
+    docstring). Returns the kernels' launches in the phase."""
+    t0 = time.perf_counter()
+    spec, val = train_data(os.path.join(train_root, "data"))
+    cfg = dataclasses.replace(net_cfg, compute_dtype="float32")
+    zero_counts()
+    row = {"phase": "tooling", "config": cfg.__dict__,
+           "remat": tooling_remat(spec, cfg, device),
+           "fused_step": tooling_fused(spec, cfg, device),
+           "observability": tooling_observability(spec, val, cfg, root,
+                                                  device),
+           "wire": tooling_wire(spec, cfg, variables, root, device)}
+    launches = read_counts()
+    row.update(launches=launches, seconds=time.perf_counter() - t0)
+    emit(row)
+    check(launches["fused_decode"] > 0
+          and launches["fused_decode_by_path"]["strided"] == 0
+          and launches["int8_gemm_requant"] == 0
+          and launches["weighted_mean_shift"] == 0
+          and launches["int8_dwconv_requant"] == 0,
+          f"tooling: launches {launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# the serving daemon
+# --------------------------------------------------------------------------
+
+def serve_clients(server, frames, bbxs, n_clients: int):
+    """``n_clients`` concurrent ``Client``s, each sending its share of the
+    frames pipelined (all submitted before any answer is read). Returns the
+    answers in frame order and the host seconds."""
+    per = len(frames) // n_clients
+    out, errs = [None] * n_clients, []
+
+    def one(i):
+        try:
+            with Client(server.address) as c:
+                out[i] = c.predict_batch(frames[i * per:(i + 1) * per],
+                                         bbxs[i * per:(i + 1) * per])
+        except Exception as exc:
+            errs.append((i, repr(exc)))
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    dt = time.perf_counter() - t0
+    check(not errs and all(o is not None for o in out),
+          f"daemon clients failed: {errs}")
+    return np.concatenate(out), dt
+
+
+def flood(server, frame, bbx, n: int):
+    """One client submits ``n`` requests before reading any: the answers
+    and ``overloaded`` sheds, and the server's stats."""
+    ok = shed = 0
+    with Client(server.address) as c:
+        for i in range(n):
+            c.submit(frame, bbx, rid=i)
+        for _ in range(n):
+            resp = c.recv()
+            if resp.get("error") == "overloaded":
+                shed += 1
+            else:
+                check("xyz" in resp, f"daemon flood: reply {resp}")
+                ok += 1
+        st = c.stats()
+    return {"requests": n, "answered": ok, "shed": shed, "stats": st}
+
+
+class TimedPredictor:
+    """A predictor's ``_dispatch`` with the host seconds of each call kept
+    (the batcher's time to stack, pin, copy and issue a batch); with
+    ``null``, a predictor that does no work and answers zeros, so that the
+    daemon's own host path is all that is timed."""
+
+    def __init__(self, pred: Predictor, null: bool = False):
+        self.pred, self.null = pred, null
+        self.max_batch, self.camera = pred.max_batch, pred.camera
+        self.accepts_u16 = pred.accepts_u16
+        self.host_s = []
+
+    def _dispatch(self, frames, bbxs):
+        t0 = time.perf_counter()
+        out = (np.zeros((len(frames), 3 * self.pred.net_cfg.num_joint),
+                        np.float32) if self.null
+               else self.pred._dispatch(frames, bbxs))
+        self.host_s.append(time.perf_counter() - t0)
+        return out
+
+
+def socket_address(root: str, name: str) -> str:
+    """A Unix socket under ``root``, or in the abstract namespace where that
+    path would pass the 107 bytes a socket's path may have."""
+    path = os.path.join(root, name + ".sock")
+    return path if len(path) < 100 else f"\0densereg_{os.getpid()}_{name}"
+
+
+def phase_daemon(variables, net_cfg: NetConfig, device, root: str,
+                 n_clients: int = 4, per_client: int = 1024,
+                 max_batch: int = 256, n_calib: int = 64):
+    """The serving daemon (``densereg_torch.serve``) on a Unix socket over
+    the float32 ``Predictor`` and over the calibrated int8 one, with
+    ``n_clients`` concurrent clients of ``per_client`` uint16 frames each,
+    on counts of their own; the answers against a direct ``Predictor`` call
+    on the same frames; then a flood against a bounded queue. Returns the
+    kernels' launches of the two servers."""
+    t0 = time.perf_counter()
+    n = n_clients * per_client
+    distinct, boxes = hand_frames(np.random.default_rng(SEED + 11),
+                                  min(n, 256))
+    tile = -(-n // len(distinct))
+    frames = np.tile(distinct, (tile, 1, 1))[:n]
+    bbxs = np.tile(boxes, (tile, 1))[:n]
+    calib = hand_frames(np.random.default_rng(SEED + 4), n_calib)
+    preds = {
+        "float32": Predictor(variables, dataclasses.replace(
+            net_cfg, compute_dtype="float32"), ICVL, max_batch=max_batch,
+            device=device),
+        "int8": Predictor(variables, dataclasses.replace(
+            net_cfg, compute_dtype="bfloat16"), ICVL, max_batch=max_batch,
+            quantize=True, calibration=calib, device=device)}
+    direct, direct_fps = {}, {}
+    for name, pred in preds.items():
+        check(pred.device.type == "cuda", f"daemon {name}: predictor on "
+                                          f"{pred.device}")
+        pred.warmup(with_u16=True)
+        t1 = time.perf_counter()
+        direct[name] = pred(frames, bbxs)
+        direct_fps[name] = n / (time.perf_counter() - t1)
+    convs = sum(isinstance(m, layers.ConvBR)
+                for m in preds["int8"].net.modules())
+
+    zero_counts()
+    rows = {}
+    for name, pred in preds.items():
+        timed = TimedPredictor(pred)
+        # a queue that holds every request: this run answers them all
+        with Server(timed, socket_address(root, name), max_queue=n) as srv:
+            got, dt = serve_clients(srv, frames, bbxs, n_clients)
+            st = srv.stats()
+        gap = np.abs(got - direct[name]).reshape(n, -1, 3).max(axis=-1)
+        flips = np.argwhere(gap > 1e-3)
+        rows[name] = {"frames_per_s": n / dt, "seconds": dt,
+                      "stats": st,
+                      "direct_frames_per_s": direct_fps[name],
+                      "dispatch_host_ms": statistics.mean(timed.host_s) * 1e3,
+                      "max_mm_from_direct": float(gap.max()),
+                      "decode_flips": len(flips),
+                      "decode_flip_joints": flips[:20].tolist()}
+    launches = read_counts()
+    # the daemon's own ceiling: the same clients against a predictor that
+    # does no work
+    null = TimedPredictor(preds["float32"], null=True)
+    with Server(null, socket_address(root, "null"), max_queue=n) as srv:
+        _, dt = serve_clients(srv, frames, bbxs, n_clients)
+        host_ceiling = {"frames_per_s": n / dt,
+                        "batches": srv.stats()["batches"],
+                        "dispatch_host_ms": statistics.mean(null.host_s) * 1e3}
+    batches = {name: r["stats"]["batches"] for name, r in rows.items()}
+    flood_row = None
+    with Server(preds["float32"], socket_address(root, "flood"),
+                max_queue=max_batch) as srv:
+        flood_row = flood(srv, frames[0], bbxs[0], 4 * max_batch)
+    row = {"phase": "daemon", "config": net_cfg.__dict__,
+           "clients": n_clients, "frames_per_client": per_client,
+           "frame_dtype": "uint16", "max_batch": max_batch, **rows,
+           "int8_convs_per_forward": convs, "host_ceiling": host_ceiling,
+           "flood": flood_row,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(row)
+    for name, r in rows.items():
+        st = r["stats"]
+        check(st["errors"] == 0 and st["requests"] == n
+              and st["responses"] == n and st["sheds"] == 0,
+              f"daemon {name}: stats {st}")
+    check(launches["fused_decode"] == sum(batches.values())
+          and launches["fused_decode_by_path"]["strided"] == 0,
+          f"daemon: K1 launched {launches['fused_decode']} times for "
+          f"{batches} batches")
+    check(launches["int8_gemm_requant"] == convs * batches["int8"],
+          f"daemon: K3 launched {launches['int8_gemm_requant']} times, "
+          f"{convs} a forward x {batches['int8']} int8 batches expected")
+    check(launches["weighted_mean_shift"] == 0
+          and launches["int8_dwconv_requant"] == 0
+          and launches["im2col_nhwc_cuda_calls"] == 0,
+          f"daemon: off-path launches {launches}")
+    fst = flood_row["stats"]
+    check(fst["errors"] == 0
+          and flood_row["answered"] + flood_row["shed"] == 4 * max_batch
+          and fst["responses"] == flood_row["answered"]
+          and fst["sheds"] == flood_row["shed"],
+          f"daemon flood: {flood_row}")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2156,6 +2765,11 @@ def main() -> int:
         check(variants_launches["int8_dwconv_requant"] > 0
               and variants_launches["weighted_mean_shift"] == 0,
               f"the variants' paths launched {variants_launches}")
+        # the training tooling and the serving daemon, on counts of their own
+        tooling_launches = phase_tooling(
+            variables, net_cfg, "cuda", os.path.join(root, "tooling"),
+            train_root)
+        daemon_launches = phase_daemon(variables, net_cfg, "cuda", root)
 
     # the serving bucket as the float nets (hm_pixels) and the int8 net
     # (pixels) hand it over
@@ -2174,6 +2788,10 @@ def main() -> int:
         "eval_launches_by_path": eval_launches["fused_decode_by_path"],
         "variants_launches": variants_launches["fused_decode"],
         "variants_launches_by_path": variants_launches["fused_decode_by_path"],
+        "tooling_launches": tooling_launches["fused_decode"],
+        "tooling_launches_by_path": tooling_launches["fused_decode_by_path"],
+        "daemon_launches": daemon_launches["fused_decode"],
+        "daemon_launches_by_path": daemon_launches["fused_decode_by_path"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"],
         "device_ms_channels_last": int8_row["device_ms"],
@@ -2191,6 +2809,8 @@ def main() -> int:
         "eval_launches": eval_launches["int8_gemm_requant"],
         "eval_launches_by_path": None,
         "variants_launches": variants_launches["int8_gemm_requant"],
+        "tooling_launches": tooling_launches["int8_gemm_requant"],
+        "daemon_launches": daemon_launches["int8_gemm_requant"],
         "max_abs_err": k3_total["max_abs_err"],
         "ms": k3_total["ms"], "device_ms": k3_total["device_ms"],
         "plain_ms": k3_total["plain_ms"],
@@ -2207,6 +2827,8 @@ def main() -> int:
         "eval_launches": eval_launches["weighted_mean_shift"],
         "eval_launches_by_path": None,
         "variants_launches": variants_launches["weighted_mean_shift"],
+        "tooling_launches": tooling_launches["weighted_mean_shift"],
+        "daemon_launches": daemon_launches["weighted_mean_shift"],
         "max_abs_err": k2_row["max_abs_err"],
         "ms": k2_row["ms"], "device_ms": k2_row["device_ms"],
         "host_us": k2_row["host_us"], "plain_ms": k2_row["plain_ms"],
@@ -2226,6 +2848,8 @@ def main() -> int:
         "eval_launches": eval_launches["int8_dwconv_requant"],
         "eval_launches_by_path": None,
         "variants_launches": variants_launches["int8_dwconv_requant"],
+        "tooling_launches": tooling_launches["int8_dwconv_requant"],
+        "daemon_launches": daemon_launches["int8_dwconv_requant"],
         "calls_per_forward": dw_total["calls_per_forward"],
         "max_abs_err": max(t["max_abs_err"] for t in dw_totals.values()),
         "ms": dw_total["ms"], "device_ms": dw_total["device_ms"],

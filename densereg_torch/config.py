@@ -65,8 +65,10 @@ class NetConfig:
     dropout_rate: float = 0.5
     bn_decay: float = 0.99
     renorm_t_delta: float = 1e-5
-    # recompute the forward on the backward pass; not ported (a recomputed
-    # forward would update the renorm moving statistics a second time)
+    # recompute the training forward on the backward pass
+    # (torch.utils.checkpoint around the whole net, train.state.loss_fn);
+    # the recompute replays the first pass's renorm statistics and dropout
+    # masks and moves nothing
     remat: bool = False
 
     def __post_init__(self):
@@ -124,8 +126,22 @@ class TrainConfig:
     # (marker best.json), ranked on a fixed set of this many frames
     keep_best: bool = False
     best_score_frames: int = 64
+    # parameter and gradient histograms to the event file every this many
+    # steps (0: never)
+    histogram_every: int = 100
     base_dir: str = "./exp/train_cache/"
+    # crop on the host (the producer threads, on CPU tensors) and ship the
+    # cropped float32 batch instead of raw uint16 frames; with
+    # wire_dtype="uint16" the crop ships as per-batch fixed-point uint16
+    # (densereg_torch.wire) and is decoded on the device
+    host_preprocess: bool = False
+    wire_dtype: str = "float32"
     num_workers: int = 1          # producer threads of the input pipeline
+    # when set, torch.profiler traces steps [profile_start, profile_start +
+    # profile_steps) into this directory as a Chrome trace
+    profile_dir: Optional[str] = None
+    profile_start: int = 10
+    profile_steps: int = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +155,10 @@ class EvalConfig:
     mean_shift_iters: int = 10
     band_width: float = 0.4
     vote_grid: int = 4            # 4x4x4 quantized voting grid
+    # crop on the host and ship the crop (TrainConfig.host_preprocess), as
+    # float32 or as the uint16 wire
+    host_preprocess: bool = False
+    wire_dtype: str = "float32"
 
 
 def model_desc(dataset_name: str, subset: str, net: NetConfig, augment: bool,

@@ -1,11 +1,16 @@
 """Input pipelines: npz shards on the host, crop on the device.
 
-Mirrors the device-crop path of ``densereg_tpu/data/pipeline.py``. Producer
-threads assemble shuffled batches of raw full frames in numpy, the depth
-kept uint16 (2 bytes a pixel over the bus); the consumer pins them, copies
-them to ``device`` and runs the crop and center of mass there
+Mirrors ``densereg_tpu/data/pipeline.py``. Producer threads assemble
+shuffled batches of raw full frames in numpy, the depth kept uint16 (2
+bytes a pixel over the bus); the consumer pins them, copies them to
+``device`` and runs the crop and center of mass there
 (``preprocess.preprocess_batch_from_pose``), in the layout of the training
 step's ``(sub_batch, batch, ...)`` axes.
+
+With ``host_preprocess`` the crop runs on the host instead, in the
+producer threads, on CPU tensors, and the cropped float32 batch crosses
+the bus; with ``wire_dtype="uint16"`` it crosses as the per-batch
+fixed-point uint16 of ``densereg_torch.wire`` and is decoded on the device.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from densereg_torch.preprocess import (
     preprocess_batch_from_bbx,
     preprocess_batch_from_pose,
 )
+from densereg_torch.wire import check_wire, decode_dm_u16, encode_dm_u16
 
 
 def _load_frames(reader, idxs, spec: DatasetSpec):
@@ -36,11 +42,34 @@ def _load_frames(reader, idxs, spec: DatasetSpec):
     return depth, pose, names, bbx
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(a))
+def _to_device(a, device: torch.device) -> torch.Tensor:
+    t = torch.as_tensor(np.ascontiguousarray(a) if isinstance(a, np.ndarray)
+                        else a)
     if device.type == "cuda":
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
+
+
+def _host_crop(out, wire_dtype: str):
+    """A host-preprocessed batch ``(dm, pose, cfgs, coms)`` as it crosses
+    the bus: as it is (``float32``), or with ``dm`` encoded as the uint16
+    wire's ``(q, scale)``."""
+    dm, rest = out[0], tuple(out[1:])
+    if wire_dtype == "uint16":
+        return encode_dm_u16(dm.numpy()) + rest
+    return (dm,) + rest
+
+
+def _from_wire(item, wire_dtype: str, device: torch.device):
+    """The inverse of :func:`_host_crop` on ``device``: ``(dm, pose, cfgs,
+    coms)``, the uint16 wire decoded there."""
+    if wire_dtype == "uint16":
+        q, scale = item[:2]
+        dm = decode_dm_u16(_to_device(q, device), _to_device(scale, device))
+        rest = item[2:]
+    else:
+        dm, rest = _to_device(item[0], device), item[1:]
+    return (dm,) + tuple(_to_device(x, device) for x in rest)
 
 
 class InputPipeline:
@@ -52,18 +81,26 @@ class InputPipeline:
     ``np.random.default_rng(seed + 7919 i)``, as the JAX package's does;
     with one producer the stream is a function of ``seed`` alone, and
     ``skip`` drops its first ``skip`` batches without loading them (where a
-    resumed run picks the stream up).
+    resumed run picks the stream up). ``host_preprocess`` crops in the
+    producers, on the CPU, and ``wire_dtype`` is how the crop crosses the
+    bus (``float32``, or ``uint16`` with ``host_preprocess``).
     """
 
     def __init__(self, spec: DatasetSpec, batch_size: int, sub_batch: int = 1,
                  input_hw=(128, 128), seed: int = 0, prefetch: int = 4,
-                 num_workers: int = 1, skip: int = 0, device="cuda"):
+                 num_workers: int = 1, skip: int = 0,
+                 host_preprocess: bool = False, wire_dtype: str = "float32",
+                 device="cuda"):
+        check_wire(host_preprocess, wire_dtype)
         self.spec = spec
         self.batch_size = batch_size
         self.sub_batch = sub_batch
         self.input_hw = tuple(input_hw)
+        self.host_preprocess = host_preprocess
+        self.wire_dtype = wire_dtype
         self.device = torch.device(device)
         self._cfg = spec.cfg.as_array(device=self.device)
+        self._host_cfg = spec.cfg.as_array()
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._threads = [
@@ -114,6 +151,10 @@ class InputPipeline:
                                   for r, ix in take]
                         item = (np.concatenate([x[0] for x in loaded]),
                                 np.concatenate([x[1] for x in loaded]))
+                        if self.host_preprocess:
+                            item = _host_crop(self._crop(
+                                *(torch.from_numpy(x) for x in item),
+                                self._host_cfg), self.wire_dtype)
                         if not self._put(item):
                             return
                     if self._stop.is_set():
@@ -128,14 +169,21 @@ class InputPipeline:
             item = self._q.get()
             if isinstance(item, Exception):
                 raise RuntimeError("input pipeline producer failed") from item
-            dms, poses = item
-            dm, pose, cfgs, coms = preprocess_batch_from_pose(
-                _to_device(dms, self.device), _to_device(poses, self.device),
-                self._cfg, h, w, self.spec.fixed_bg_threshold)
+            if self.host_preprocess:
+                dm, pose, cfgs, coms = _from_wire(item, self.wire_dtype,
+                                                  self.device)
+            else:
+                dm, pose, cfgs, coms = self._crop(
+                    *(_to_device(x, self.device) for x in item), self._cfg)
             yield {"dm": dm.reshape(sub, b, h, w, 1),
                    "pose": pose.reshape(sub, b, -1),
                    "cfg": cfgs.reshape(sub, b, 6),
                    "com": coms.reshape(sub, b, 3)}
+
+    def _crop(self, dms, poses, cfg):
+        h, w = self.input_hw
+        return preprocess_batch_from_pose(dms, poses, cfg, h, w,
+                                          self.spec.fixed_bg_threshold)
 
     def close(self):
         self._stop.set()
@@ -152,15 +200,22 @@ class TestPipeline:
     """Sequential single-pass pipeline yielding ``{dm, pose, cfg, com,
     name}`` batches on ``device``: cropped around the pose, or from the
     stored boxes where the spec uses them. The last batch is padded by
-    repeating its last frame, so every batch has ``batch_size`` frames."""
+    repeating its last frame, so every batch has ``batch_size`` frames.
+    ``host_preprocess`` and ``wire_dtype`` as in :class:`InputPipeline`:
+    the crop is made on the CPU and decoded on ``device``."""
 
     def __init__(self, spec: DatasetSpec, batch_size: int,
-                 input_hw=(128, 128), device="cuda"):
+                 input_hw=(128, 128), host_preprocess: bool = False,
+                 wire_dtype: str = "float32", device="cuda"):
+        check_wire(host_preprocess, wire_dtype)
         self.spec = spec
         self.batch_size = batch_size
         self.input_hw = tuple(input_hw)
+        self.host_preprocess = host_preprocess
+        self.wire_dtype = wire_dtype
         self.device = torch.device(device)
         self._cfg = spec.cfg.as_array(device=self.device)
+        self._host_cfg = spec.cfg.as_array()
 
     def unique_readers(self):
         """The non-empty shards in dataset order, each once."""
@@ -195,15 +250,19 @@ class TestPipeline:
 
     def _emit(self, buf_d, buf_p, buf_n, buf_b) -> dict:
         h, w = self.input_hw
-        dms = _to_device(np.stack(buf_d), self.device)
-        poses = _to_device(np.stack(buf_p), self.device)
+        crop_on = torch.device("cpu") if self.host_preprocess else self.device
+        dms = _to_device(np.stack(buf_d), crop_on)
+        poses = _to_device(np.stack(buf_p), crop_on)
+        cfg = self._host_cfg if self.host_preprocess else self._cfg
         if self.spec.uses_bbx and buf_b:
             out = preprocess_batch_from_bbx(
-                dms, poses, _to_device(np.stack(buf_b), self.device),
-                self._cfg, h, w)
+                dms, poses, _to_device(np.stack(buf_b), crop_on), cfg, h, w)
         else:
-            out = preprocess_batch_from_pose(dms, poses, self._cfg, h, w,
+            out = preprocess_batch_from_pose(dms, poses, cfg, h, w,
                                              self.spec.fixed_bg_threshold)
+        if self.host_preprocess:
+            out = _from_wire(_host_crop(out, self.wire_dtype),
+                             self.wire_dtype, self.device)
         dm, pose, cfgs, coms = out
         return {"dm": dm, "pose": pose, "cfg": cfgs, "com": coms,
                 "name": list(buf_n)}

@@ -123,11 +123,6 @@ class DenseRegNet(nn.Module):
         if cfg.quantize and not cfg.fold_bn:
             raise ValueError("an int8 net is a folded one: set fold_bn "
                              "(models.quantize.quantized_net_config)")
-        if cfg.remat:
-            raise NotImplementedError(
-                "NetConfig.remat is not ported: a forward recomputed on the "
-                "backward pass would update the renorm moving statistics a "
-                "second time")
         self.cfg = cfg
         f, j = cfg.num_fea, cfg.num_joint
         bn = dict(use_bn=not cfg.fold_bn, bn_epsilon=cfg.bn_epsilon,

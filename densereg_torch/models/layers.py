@@ -122,6 +122,11 @@ class BatchRenorm(nn.Module):
     with ``r`` and ``d`` from the moving statistics as they stand before the
     call (``r = 1``, ``d = 0`` without ``r_max``); the moving statistics then
     move once, ``decay * moving + (1 - decay) * batch``, outside autograd.
+
+    ``replay``, when set to a ``(mean, var)`` pair (the moving statistics
+    before the first pass), makes a training forward the recompute of a
+    rematerialised one: ``r`` and ``d`` come from that pair and the moving
+    statistics stay where the first pass left them.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-3,
@@ -133,6 +138,7 @@ class BatchRenorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.replay = None
 
     def forward(self, x, r_max=None, d_max=None):
         view = lambda t: t.float().view(1, -1, 1, 1)
@@ -145,18 +151,20 @@ class BatchRenorm(nn.Module):
             var = torch.square(xf - mean.view(1, -1, 1, 1)).mean(dim=(0, 2, 3))
             std = torch.sqrt(var + self.epsilon)
             y = (xf - view(mean)) / view(std)
+            mov_mean, mov_var = self.replay or (self.mean, self.var)
             if r_max is not None:
                 with torch.no_grad():
-                    mov_std = torch.sqrt(self.var + self.epsilon)
+                    mov_std = torch.sqrt(mov_var + self.epsilon)
                     r = torch.clamp(std / mov_std, 1.0 / r_max, r_max)
-                    d = torch.clamp((mean - self.mean) / mov_std, -d_max,
+                    d = torch.clamp((mean - mov_mean) / mov_std, -d_max,
                                     d_max)
                 y = y * view(r) + view(d)
-            with torch.no_grad():
-                self.mean.copy_(self.decay * self.mean
-                                + (1.0 - self.decay) * mean)
-                self.var.copy_(self.decay * self.var
-                               + (1.0 - self.decay) * var)
+            if self.replay is None:
+                with torch.no_grad():
+                    self.mean.copy_(self.decay * self.mean
+                                    + (1.0 - self.decay) * mean)
+                    self.var.copy_(self.decay * self.var
+                                   + (1.0 - self.decay) * var)
         return (y * view(self.gamma) + view(self.beta)).to(x.dtype)
 
 

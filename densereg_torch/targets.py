@@ -3,7 +3,8 @@ heatmaps and unit-offset maps.
 
 Mirrors ``densereg_tpu/targets.py``: every map is one broadcast expression
 over ``(b, h, w, j)``, NHWC like the net's heads, on the device the inputs
-lie on. (The visualisation helpers of that module are not ported.)
+lie on. ``um_xy_angle`` draws the unit offsets for the debug images; the
+other visualisation helpers of that module are not ported.
 """
 
 from __future__ import annotations
@@ -101,3 +102,20 @@ def synthesize(poses: torch.Tensor, cfgs: torch.Tensor, coms: torch.Tensor,
     hm3 = hm3d(om)
     um = unit_offset_maps(om, hm3)
     return {"hm2": gt_hm2, "hm3": hm3, "um": um, "om": om, "tiny_dm": tiny_dm}
+
+
+def um_xy_angle(ums: torch.Tensor) -> torch.Tensor:
+    """The xy-plane angle of unit-offset maps, for the debug images (the
+    reference's ``_vis_um_xy``): ``sin(x / |xy|)`` where the vector is
+    long enough to mean something, 1 elsewhere; the denominator is clamped
+    (the reference divides unguarded and gives NaN on pure-z vectors).
+
+    Args: ums (b, h, w, 3j). Returns (b, h, w, j).
+    """
+    b, h, w, c = ums.shape
+    u = ums.reshape(b, h, w, c // 3, 3)
+    x, y, z = u[..., 0], u[..., 1], u[..., 2]
+    d = torch.sqrt(x * x + y * y)
+    small = (d * d + z * z) < 0.1
+    safe_d = torch.clamp_min(d, 1e-6)
+    return torch.where(small, torch.ones_like(x), torch.sin(x / safe_d))

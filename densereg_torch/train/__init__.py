@@ -9,7 +9,11 @@ from densereg_torch.train.state import (
     make_optimizer,
     weight_decay_loss,
 )
-from densereg_torch.train.step import global_norm, train_step
+from densereg_torch.train.step import (
+    global_norm,
+    make_fused_train_step,
+    train_step,
+)
 
 __all__ = [
     "BestTracker",
@@ -19,6 +23,7 @@ __all__ = [
     "create_train_state",
     "global_norm",
     "loss_fn",
+    "make_fused_train_step",
     "make_optimizer",
     "rotating_batches",
     "staircase_exponential_decay",

@@ -11,6 +11,15 @@ stream and the random generators where they were, so a stopped and
 resumed run takes the steps an uninterrupted one would; ``init_params``
 starts a fresh run from converted weights. The checkpoint namespace is
 ``config.model_desc``, which ``test`` (the test driver) reads too.
+
+Observability, as the JAX loop has it: a TensorBoard event file under
+``<train_dir>/summary`` (``utils.tb``) with the scalars and the learning
+rate every ``summary_every`` steps, ``val/max_joint_error`` and skeleton
+images at each validation (``debug_level >= 1``), parameter and gradient
+histograms under the Flax key paths every ``histogram_every`` steps, and
+debug images of the current batch (``debug_level >= 2``); with
+``TrainConfig.profile_dir``, a ``torch.profiler`` Chrome trace of a few
+steps.
 """
 
 from __future__ import annotations
@@ -26,17 +35,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from densereg_torch import geometry, targets
 from densereg_torch.config import EvalConfig, NetConfig, TrainConfig, model_desc
 from densereg_torch.data.base import DatasetSpec
 from densereg_torch.data.pipeline import InputPipeline, TestPipeline
 from densereg_torch.eval.loop import evaluate_stream, make_infer_fn
 from densereg_torch.eval.metrics import max_joint_error
+from densereg_torch.eval.visualization import SummaryImageWriter
 from densereg_torch.models import DenseRegNet, from_flax, to_flax
+from densereg_torch.models.bridge import flax_tree
+from densereg_torch.preprocess import norm_dm
 from densereg_torch.train.checkpoint import CheckpointManager, restore_net
 from densereg_torch.train.state import TrainState, create_train_state
 from densereg_torch.train.step import train_step
 from densereg_torch.utils.logging import MetricLogger, TrainLogWriter
 from densereg_torch.utils.profiling import StepTimer
+from densereg_torch.utils.tb import EventWriter
 
 
 def _assert_param_shapes(net: DenseRegNet, payload: dict, what: str) -> None:
@@ -87,8 +101,8 @@ def _load_converted_into(net: DenseRegNet, payload: dict, what: str) -> None:
 def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
           val_spec: Optional[DatasetSpec] = None, restore_step=None,
           max_steps: Optional[int] = None, net_name: str = "um_v1",
-          init_params: Optional[str] = None, log_fn=print,
-          device="cuda") -> TrainState:
+          debug_level: int = 1, init_params: Optional[str] = None,
+          log_fn=print, device="cuda") -> TrainState:
     """Train on ``spec`` on ``device``; returns the final state.
 
     ``restore_step``: a step to resume from, ``"auto"`` for the latest
@@ -100,6 +114,11 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
     batch statistics and its renorm clock; the EMA, when
     ``tcfg.ema_decay`` is set, starts from those parameters. A checkpoint
     restore takes precedence.
+
+    ``debug_level``: 0 draws no images, 1 (the default, as in the JAX
+    package) saves skeleton PNGs of each validation batch (matplotlib),
+    2 also writes debug images of the training batch into the event file
+    every ``summary_every`` steps.
     """
     if val_spec is not None and val_spec.jnt_num != spec.jnt_num:
         raise ValueError("validation dataset must share the joint count")
@@ -143,16 +162,22 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
 
     log = TrainLogWriter(train_dir)
     metrics_log = MetricLogger(os.path.join(train_dir, "metrics.jsonl"))
+    summary_dir = os.path.join(train_dir, "summary")
+    events = EventWriter(summary_dir)
     pipeline = InputPipeline(spec, tcfg.batch_size, tcfg.sub_batch,
                              net_cfg.input_hw, seed=tcfg.seed,
                              num_workers=tcfg.num_workers, skip=state.step,
-                             device=device)
-    infer_fn = val_iter = best_tracker = None
+                             host_preprocess=tcfg.host_preprocess,
+                             wire_dtype=tcfg.wire_dtype, device=device)
+    infer_fn = val_iter = best_tracker = image_writer = None
     if val_spec is not None:
         infer_fn = make_infer_fn(net_cfg, EvalConfig(), device=device)
         val_iter = rotating_batches(TestPipeline(val_spec, 3,
                                                  net_cfg.input_hw,
                                                  device=device))
+        if debug_level >= 1:
+            image_writer = SummaryImageWriter(summary_dir, debug_level,
+                                              events)
         if tcfg.keep_best:
             best_tracker = BestTracker(
                 val_spec, net_cfg.input_hw,
@@ -161,6 +186,7 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
                 n_frames=tcfg.best_score_frames, device=device)
     elif tcfg.keep_best:
         log_fn("[train] keep_best ignored: no validation split to rank by")
+    debug_fn = _make_debug_fn(net_cfg) if debug_level >= 2 else None
 
     schedule = state.optimizer.schedule
     log_fn(f"[train] lr decays per "
@@ -183,6 +209,7 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
     # step and checked after step k+1 is issued; it is flushed before any
     # checkpoint, so a diverged state is never saved.
     pending = None
+    prof = None
 
     def _guard(step_no, value):
         if not np.isfinite(value):
@@ -209,13 +236,23 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
 
     try:
         for step in range(state.step, max_steps):
+            if tcfg.profile_dir and step == tcfg.profile_start:
+                prof = _start_profile(device)
+            if (prof is not None
+                    and step == tcfg.profile_start + tcfg.profile_steps):
+                _stop_profile(prof, tcfg, device)
+                prof = None
             sync = (step % tcfg.log_every == 0
                     or step % tcfg.summary_every == 0
                     or step % tcfg.checkpoint_every == 0
                     or step + 1 == max_steps)
             with timer:     # the feed included: it runs on the same stream
                 batch = next(data_iter)
-                metrics = train_step(state, batch, net_cfg, tcfg, generator)
+                histograms = (tcfg.histogram_every > 0
+                              and step % tcfg.histogram_every == 0)
+                metrics = train_step(state, batch, net_cfg, tcfg, generator,
+                                     with_grads=histograms)
+                grads = metrics.pop("grads", None)
                 _flush_guard()
                 if sync:
                     loss = float(metrics["loss"])
@@ -228,11 +265,18 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
                 log.log_step(step, max_steps, loss, timer.last,
                              timer.last / samples_per_step)
             if step % tcfg.summary_every == 0:
-                metrics_log.log(step, learning_rate=schedule(step),
-                                sec_per_batch=timer.last,
-                                **{k: float(v) for k, v in metrics.items()})
+                lr = schedule(step)
+                scalars = {k: float(metrics[k]) for k in sorted(metrics)}
+                metrics_log.log(step, learning_rate=lr,
+                                sec_per_batch=timer.last, **scalars)
+                events.add_scalars(dict(scalars, learning_rate=lr), step)
+                if debug_fn is not None:
+                    _train_debug_images(debug_fn, state, batch, events, step)
+            if histograms:
+                _write_histograms(events, state.net, grads, step)
             if val_iter is not None and step % tcfg.validate_every == 0:
-                _validate(infer_fn, state, next(val_iter), log, step, log_fn)
+                _validate(infer_fn, state, next(val_iter), log, step, log_fn,
+                          image_writer, spec.name, events)
                 if best_tracker is not None:
                     best_tracker.maybe_update(infer_fn, state, log_fn,
                                               pre_save=_flush_guard,
@@ -262,9 +306,12 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
     finally:
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)
+        if prof is not None:
+            _stop_profile(prof, tcfg, device)
         pipeline.close()
         log.close()
         metrics_log.close()
+        events.close()
 
 
 def test(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
@@ -319,7 +366,8 @@ def test(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
 
     infer_fn = make_infer_fn(net_cfg, ecfg, device=device)
     pipe = TestPipeline(spec, ecfg.batch_size, net_cfg.input_hw,
-                        device=device)
+                        host_preprocess=ecfg.host_preprocess,
+                        wire_dtype=ecfg.wire_dtype, device=device)
     stamp = str(datetime.now()).replace(" ", "_")
     res_path = os.path.join(train_dir, f"{spec.subset}-{stamp}-result.txt")
     err_path = os.path.join(train_dir,
@@ -419,10 +467,13 @@ def rotating_batches(pipeline):
 
 
 def _validate(infer_fn, state: TrainState, batch, log: TrainLogWriter,
-              step: int, log_fn=print) -> float:
+              step: int, log_fn=print, image_writer=None,
+              dataset_name: str = "icvl", events=None) -> float:
     """One validation batch through the live net in eval form (the moving
     statistics stay as they are): the per-joint error matrix to the
-    training log. Returns the mean max-joint error, mm."""
+    training log, the mean to ``events`` as ``val/max_joint_error``, and
+    the predicted skeletons over the crops through ``image_writer``.
+    Returns the mean max-joint error, mm."""
     net = state.net
     was_training = net.training
     net.eval()
@@ -440,4 +491,116 @@ def _validate(infer_fn, state: TrainState, batch, log: TrainLogWriter,
                                               axis=1)))
     log.write(f"validation error: {errs}")
     log_fn(f"[validate] step {step} maxJntError {errs}")
-    return float(np.mean(errs))
+    mean_err = float(np.mean(errs))
+    if events is not None:
+        events.add_scalar("val/max_joint_error", mean_err, step)
+    if image_writer is not None:
+        uvd = geometry.xyz2uvd(xyz, batch["cfg"]).reshape(xyz.shape[0], -1, 3)
+        image_writer.save_batch_skeletons(
+            "val_pts", batch["dm"].cpu().numpy(), uvd.cpu().numpy(),
+            dataset_name, step)
+    return mean_err
+
+
+def _tree_tags(tree, prefix: str = ""):
+    """``(tag, leaf)`` pairs of a nested dict, the key path joined by
+    ``/``, keys sorted at each level: the order and the names of the JAX
+    package's ``jax.tree_util`` walk over the same Flax tree."""
+    out = []
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            out.extend(_tree_tags(val, f"{prefix}{key}/"))
+        else:
+            out.append((prefix + key, val))
+    return out
+
+
+def _write_histograms(events, net: DenseRegNet, grads, step: int) -> None:
+    """Histograms of every parameter and of its averaged gradient (before
+    the clip), tagged ``params/<Flax path>`` and ``grads/<Flax path>`` in
+    the JAX package's order (the reference logs them every summary step,
+    its ``model/train_single_gpu.py``)."""
+    for tag, leaf in _tree_tags(to_flax(net)["params"]):
+        events.add_histogram("params/" + tag, leaf, step)
+    if grads is not None:
+        for tag, leaf in _tree_tags(flax_tree(grads)):
+            events.add_histogram("grads/" + tag, leaf, step)
+    events.flush()
+
+
+def _make_debug_fn(net_cfg: NetConfig):
+    """The debug images' inputs for a few frames of the training batch: the
+    normalized depth, the targets and the heads of an eval-form forward of
+    the current weights (the moving statistics, which it does not move), on
+    the net's device (the reference's debug-level image summaries of its
+    training graph)."""
+    out_h, out_w = net_cfg.output_hw
+
+    @torch.no_grad()
+    def debug(net: DenseRegNet, dms, poses, cfgs, coms):
+        normed = norm_dm(dms, coms)
+        gt = targets.synthesize(poses, cfgs, coms, normed, out_h, out_w)
+        was_training = net.training
+        net.eval()
+        try:
+            outs = net(normed)
+        finally:
+            net.train(was_training)
+        est = {k: outs[k][-1] for k in ("hm", "hm3", "um")}
+        return normed, gt, est
+
+    return debug
+
+
+def _train_debug_images(debug_fn, state: TrainState, batch, events, step: int,
+                        n: int = 1) -> None:
+    """The input depth, the targets and estimates of ``hm`` and ``hm3``
+    (max over joints) and the xy angle of the unit offsets of the first
+    ``n`` frames of the first micro-batch, as image records of the event
+    file (``debug_level >= 2``)."""
+    take = lambda t: t[0][:n]
+    normed, gt, est = debug_fn(state.net, take(batch["dm"]),
+                               take(batch["pose"]), take(batch["cfg"]),
+                               take(batch["com"]))
+    host = lambda t: t.float().cpu().numpy()
+    gt_ang = host(targets.um_xy_angle(gt["um"]))
+    est_ang = host(targets.um_xy_angle(est["um"]))
+    normed = host(normed)
+    for i in range(normed.shape[0]):
+        pre = f"train/{i}/"
+        events.add_image(pre + "dm", (normed[i, ..., 0] + 1.0) / 2.0, step)
+        for tag, maps in (("hm_gt", gt["hm2"]), ("hm_est", est["hm"]),
+                          ("hm3_gt", gt["hm3"]), ("hm3_est", est["hm3"])):
+            events.add_image(pre + tag, host(maps[i]).max(axis=-1), step)
+        for tag, maps in (("um_xy_gt", gt_ang), ("um_xy_est", est_ang)):
+            events.add_image(pre + tag, (maps[i, ..., 0] + 1.0) / 2.0, step)
+    events.flush()
+
+
+def _start_profile(device: torch.device):
+    """Start ``torch.profiler`` on the host and, on a CUDA device, the
+    device (``TrainConfig.profile_dir``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, tcfg: TrainConfig, device: torch.device) -> str:
+    """Stop the trace once the device is done and write it as a Chrome
+    trace into ``tcfg.profile_dir``; returns its path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(tcfg.profile_dir, exist_ok=True)
+    path = os.path.join(
+        tcfg.profile_dir,
+        f"train_steps_{tcfg.profile_start}-"
+        f"{tcfg.profile_start + tcfg.profile_steps}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path

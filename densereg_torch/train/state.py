@@ -13,6 +13,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from densereg_torch import augment, targets
 from densereg_torch.config import NetConfig, TrainConfig
@@ -22,6 +23,7 @@ from densereg_torch.models import (
     init_train_variables,
     renorm_clip_schedule,
 )
+from densereg_torch.models.layers import BatchRenorm
 from densereg_torch.preprocess import norm_dm
 from densereg_torch.train import losses as loss_lib
 from densereg_torch.train.lr import staircase_exponential_decay
@@ -139,6 +141,45 @@ def weight_decay_loss(net: torch.nn.Module,
     return weight_decay * torch.stack(terms).sum()
 
 
+def remat_forward(net: DenseRegNet, normed: torch.Tensor, r_max, d_max,
+                  generator: Optional[torch.Generator] = None):
+    """The training forward rematerialised (``NetConfig.remat``, the JAX
+    package's ``jax.checkpoint`` around the whole forward): no activation
+    is kept for the backward pass, which runs the forward again
+    (``torch.utils.checkpoint``, non-reentrant).
+
+    The recompute must be the first pass again and change nothing: every
+    batch renorm takes ``r`` and ``d`` from the moving statistics as they
+    stood before the first pass and does not move them
+    (``BatchRenorm.replay``), and the dropout masks are drawn again from
+    ``generator`` at the state it had before the first pass, which is then
+    set back to where the first pass left it."""
+    renorms = [m for m in net.modules() if isinstance(m, BatchRenorm)]
+    before = [(m.mean.clone(), m.var.clone()) for m in renorms]
+    gen_before = None if generator is None else generator.get_state()
+    passes = []
+
+    def run(x):
+        recompute = bool(passes)
+        passes.append(True)
+        if not recompute:
+            return net(x, r_max, d_max, generator)
+        gen_after = None if generator is None else generator.get_state()
+        for m, stats in zip(renorms, before):
+            m.replay = stats
+        if generator is not None:
+            generator.set_state(gen_before)
+        try:
+            return net(x, r_max, d_max, generator)
+        finally:
+            for m in renorms:
+                m.replay = None
+            if generator is not None:
+                generator.set_state(gen_after)
+
+    return checkpoint(run, normed, use_reentrant=False)
+
+
 def loss_fn(net: DenseRegNet, batch: Dict[str, torch.Tensor],
             net_cfg: NetConfig, tcfg: TrainConfig, renorm_t,
             generator: Optional[torch.Generator] = None,
@@ -164,7 +205,10 @@ def loss_fn(net: DenseRegNet, batch: Dict[str, torch.Tensor],
         mark("augment_targets")
 
     r_max, d_max = renorm_clip_schedule(renorm_t)
-    outs = net(normed, r_max, d_max, generator)
+    if net_cfg.remat:
+        outs = remat_forward(net, normed, r_max, d_max, generator)
+    else:
+        outs = net(normed, r_max, d_max, generator)
     data_loss = (loss_lib.l2_loss if tcfg.loss_type == "l2"
                  else loss_lib.l1_loss)
     hm_loss = sum(data_loss(est - gt["hm2"]) for est in outs["hm"])

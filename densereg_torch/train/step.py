@@ -4,16 +4,19 @@ Mirrors ``densereg_tpu/train/step.py::train_step_single``: the gradients
 of the ``sub_batch`` micro-batches are summed (each micro loss sums over
 its frames), divided by ``sub_batch``, clipped element-wise and applied
 with Adam; the renorm moving statistics and the schedule clock advance
-once a micro step.
+once a micro step. ``make_fused_train_step`` is the same step from raw
+frames and poses, the crop included.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from densereg_torch.config import NetConfig, TrainConfig
+from densereg_torch.preprocess import preprocess_batch_from_pose
 from densereg_torch.train.state import TrainState, loss_fn
 
 
@@ -83,3 +86,42 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     if kept is not None:
         out["grads"] = kept
     return out
+
+
+def make_fused_train_step(net_cfg: NetConfig, tcfg: TrainConfig, cam_cfg,
+                          fixed_bg_threshold: Optional[float] = None):
+    """One callable from raw frames to the updated state
+    (``densereg_tpu/train/step.py::make_fused_train_step``): the crop,
+    center of mass and intrinsics of ``preprocess_batch_from_pose`` on the
+    device, the ``(sub_batch, batch, ...)`` layout of ``InputPipeline``,
+    then :func:`train_step`; the same computation as the pipeline's crop
+    followed by the step.
+
+    Returns ``fn(state, frames, poses, generator=None, with_grads=False)``,
+    which updates ``state`` in place and returns the step's metrics (with
+    ``with_grads``, the averaged gradient too, as :func:`train_step`):
+    ``frames`` are raw ``(sub_batch * batch, H, W, 1)`` depth (uint16 or
+    float32 mm), ``poses`` ``(sub_batch * batch, 3J)``, both on the net's
+    device. ``cam_cfg`` is the sensor's ``(fx, fy, cx, cy, w, h)``.
+    """
+    h, w = net_cfg.input_hw
+    cam = torch.from_numpy(np.asarray(tuple(cam_cfg), np.float32))
+    cams: Dict[torch.device, torch.Tensor] = {}
+
+    def fused(state, frames: torch.Tensor, poses: torch.Tensor,
+              generator: Optional[torch.Generator] = None,
+              with_grads: bool = False):
+        if frames.device not in cams:
+            cams[frames.device] = cam.to(frames.device)
+        dm, pose, cfgs, coms = preprocess_batch_from_pose(
+            frames, poses, cams[frames.device], h, w, fixed_bg_threshold)
+        sub = tcfg.sub_batch
+        b = dm.shape[0] // sub
+        batch = {"dm": dm.reshape(sub, b, h, w, 1),
+                 "pose": pose.reshape(sub, b, -1),
+                 "cfg": cfgs.reshape(sub, b, 6),
+                 "com": coms.reshape(sub, b, 3)}
+        return train_step(state, batch, net_cfg, tcfg, generator,
+                          with_grads=with_grads)
+
+    return fused

@@ -18,7 +18,9 @@ convolution entry against im2col and the plain GEMM; an int8 net on K3
 equal to the same net on the CPU. The depthwise int8 convolution: the same
 standard as K3, on both of its load paths, and the lite int8 net on it and
 K3 equal to the CPU's. The subnormal scene (``decode_subnormal_scene``):
-K1 and K2 flush as the plain decode does.
+K1 and K2 flush as the plain decode does. The serving daemon: no error
+reply, every request answered, K1 once a batch and K3 once a convolution
+of each int8 forward (``chip_smoke.phase_daemon``).
 """
 
 import pytest
@@ -587,3 +589,22 @@ def test_test_driver_card_matches_cpu(cuda, tmp_path, monkeypatch):
     assert card[1] == cpu[1] and len(card[1]) == 6 and len(card[3]) == 17
     row = eval_card_vs_cpu(card[2], cpu[2], variables, cfg, spec, cuda)
     assert row["joints_off_unexplained"] == 0, row
+
+
+@pytest.mark.cuda
+def test_daemon_on_card(cuda, tmp_path, monkeypatch):
+    """The daemon over a float32 and a calibrated int8 ``Predictor`` at a
+    small size, 4 concurrent clients of 64 frames each; every check of
+    ``chip_smoke.phase_daemon`` raises if off."""
+    from chip_smoke import phase_daemon
+    from densereg_torch import NetConfig
+    from densereg_torch.models import init_variables
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = NetConfig(num_stack=2, num_fea=16, num_joint=16, input_hw=(32, 32))
+    launches = phase_daemon(init_variables(cfg, seed=4), cfg, cuda,
+                            str(tmp_path), per_client=64, max_batch=32,
+                            n_calib=8)
+    assert launches["fused_decode"] >= 2 * 256 // 32
+    assert launches["int8_gemm_requant"] > 0

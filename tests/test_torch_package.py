@@ -75,6 +75,40 @@ def test_evaluation_modules_are_checked(name):
         get_dataset("kinect", "training")
 
 
+@pytest.mark.parametrize("name", [
+    "serve.py", "wire.py", "utils/tb.py", "eval/visualization.py"])
+def test_tooling_and_daemon_modules_are_checked(name):
+    """The copies of the JAX package's numpy-only modules (the daemon, the
+    wire codec, the event files, the figures) exist where the import checks
+    look."""
+    assert (PKG / name).is_file()
+
+
+def _top_level_roots(path: pathlib.Path):
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Try):
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Import):
+                    yield from (a.name.split(".")[0] + "?" for a in sub.names)
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [PKG.parent / "chip_smoke.py"],
+                         ids=lambda p: (str(p.relative_to(PKG))
+                                        if PKG in p.parents else p.name))
+def test_drawing_libraries_are_imported_where_they_draw(path):
+    """matplotlib, cv2 and google_crc32c are not on every machine that runs
+    the port (the card's has none of them): no module imports them when it
+    is imported, but inside the functions that draw, or behind a
+    fallback."""
+    roots = set(_top_level_roots(path))
+    assert not roots & {"matplotlib", "cv2", "google_crc32c"}
+
+
 def test_imports_with_jax_blocked():
     """Every module of the package imports in a process where importing
     JAX, Flax or the JAX package fails."""
