@@ -98,11 +98,26 @@ Phases, each printed as one JSON line:
    time a dispatch; the same clients against a predictor that does no
    work (the daemon's own ceiling); then a flood of 1,024 requests against
    a queue of 256 (the sheds).
+12. ``export``, the export artifacts (``densereg_torch.export``) at full
+   width, on counts of their own: the float32 (TF32 off), bfloat16 and
+   calibrated int8 ``Predictor`` at ``max_batch`` 256 exported on the card
+   (float32 and uint16 entries), loaded back and held against the live
+   predictor on 1,024 uint16 frames and one float32 dispatch (the largest
+   joint gap, mm); K1's and K3's launches from inside the loaded programs,
+   by the counters and by the profiler's kernel names (a program of the
+   plain versions launches neither); the artifact's MB, export and load
+   seconds, frames/s loaded against live; one ``Server`` run on the int8
+   artifact.
+13. ``multigpu``, data parallelism on a one-rank NCCL group
+   (``densereg_torch.parallel``): one synchronized full-width training
+   step against the plain step (the loss, the largest gradient and
+   parameter gaps), ``Predictor(mesh=...)`` against ``Predictor`` in
+   float32 and calibrated int8.
 
 Then a ``kernels`` line (``train_launches``, ``eval_launches``,
-``variants_launches``, ``tooling_launches``, ``daemon_launches``: each
-kernel's launches in phases 7 to 11; the depthwise kernel's ``launches``
-are phase 9's), the card's ``nvidia-smi`` name and power limit, and
+``variants_launches``, ``tooling_launches``, ``daemon_launches``,
+``export_launches``, ``multigpu_launches``: each kernel's launches in
+phases 7 to 13; the depthwise kernel's ``launches`` are phase 9's), the card's ``nvidia-smi`` name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or when any phase fails, it exits non-zero and prints no result.
 """
@@ -2701,6 +2716,292 @@ def phase_daemon(variables, net_cfg: NetConfig, device, root: str,
     return launches
 
 
+def add_counts(acc: dict, counts: dict) -> None:
+    """``acc += counts`` for two dicts of ``read_counts``' form."""
+    for k, v in counts.items():
+        if isinstance(v, dict):
+            d = acc.setdefault(k, dict.fromkeys(v, 0))
+            for p, n in v.items():
+                d[p] += n
+        else:
+            acc[k] = acc.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def counted(acc: dict):
+    """Add the kernels' launches made inside the block to ``acc``: the
+    counts are set to 0 on entry and read on exit, so that launches made
+    outside, by the live predictors this phase compares with, stay out of
+    ``acc``."""
+    zero_counts()
+    yield
+    add_counts(acc, read_counts())
+
+
+def kernel_names_in(fn, names, want=None, tries: int = 3):
+    """How many times each CUDA kernel whose name holds one of ``names``
+    ran in one call of ``fn``, by ``torch.profiler``'s kernel records (a
+    plain-version program launches none of them). The profiler now and
+    then loses records (``device_ms``): a count other than ``want`` is
+    taken again, up to ``tries`` calls in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        found = {n: sum(n in k for k in kernels) for n in names}
+        if want is None or found == want:
+            break
+    return found
+
+
+EXPORT_KERNELS = ("fused_decode_kernel", "k3_kernel")
+
+
+def phase_export(variables, net_cfg: NetConfig, device, root: str,
+                 n_frames: int = 1024, max_batch: int = 256,
+                 n_calib: int = 64):
+    """Export artifacts (``densereg_torch.export``) at full width: the
+    float32 (TF32 off), bfloat16 and calibrated int8 ``Predictor`` at
+    ``max_batch`` exported on the card (float32 and uint16 entries), loaded
+    back and held against the live predictor on the same uint16 requests
+    (the largest joint gap, mm) and one float32 dispatch; K1's and K3's
+    launches inside the loaded programs, by the counters and by the
+    profiler's kernel names; the artifact's MB, export and load seconds,
+    frames/s of the loaded programs against the live predictor's (in turns:
+    live, loaded, loaded, live); then one ``Server`` run on the int8
+    artifact. Returns the kernels' launches made by the loaded programs."""
+    from densereg_torch.export import export_predictor, load_exported
+
+    t0 = time.perf_counter()
+    frames, bbxs = hand_frames(np.random.default_rng(SEED + 13), n_frames)
+    calib = hand_frames(np.random.default_rng(SEED + 4), n_calib)
+    bf16 = dataclasses.replace(net_cfg, compute_dtype="bfloat16")
+    kinds = {
+        "float32": (dataclasses.replace(net_cfg, compute_dtype="float32"),
+                    {}),
+        "bfloat16": (bf16, {}),
+        "int8": (bf16, {"quantize": True, "calibration": calib})}
+    dispatches = -(-n_frames // max_batch)
+    acc, rows, loaded_int8 = {}, {}, None
+    for name, (cfg, kw) in kinds.items():
+        pred = Predictor(variables, cfg, ICVL, max_batch=max_batch,
+                         device=device, **kw)
+        pred.warmup(with_u16=True)
+        path = os.path.join(root, f"{name}.pt2")
+        t1 = time.perf_counter()
+        export_predictor(pred, path)
+        export_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        loaded = load_exported(path)
+        load_s = time.perf_counter() - t1
+        check(loaded.device.type == "cuda" and loaded.accepts_u16
+              and loaded.batch_buckets == (max_batch,),
+              f"export {name}: loaded {loaded.device}, buckets "
+              f"{loaded.batch_buckets}")
+        with counted(acc):
+            loaded.warmup(with_u16=True)
+        want = pred(frames, bbxs)
+        mine = {}
+        with counted(mine):
+            got = loaded(frames, bbxs)
+        gap = float(np.abs(got - want).max())
+        f32 = frames[:max_batch].astype(np.float32)
+        with counted(mine):
+            got32 = loaded(f32, bbxs[:max_batch])
+        gap32 = float(np.abs(got32 - pred(f32, bbxs[:max_batch])).max())
+        convs = (sum(isinstance(m, layers.ConvBR)
+                     for m in pred.net.modules()) if name == "int8" else 0)
+        want_k3 = convs * (dispatches + 1)
+        check(mine["fused_decode"] == dispatches + 1
+              and mine["int8_gemm_requant"] == want_k3
+              and mine["im2col_nhwc_cuda_calls"] == 0,
+              f"export {name}: the loaded program launched {mine}, expected "
+              f"K1 {dispatches + 1} and K3 {want_k3}")
+        add_counts(acc, mine)
+        expect = {"fused_decode_kernel": 1, "k3_kernel": convs}
+        with counted(acc):
+            names = kernel_names_in(
+                lambda: loaded._dispatch(frames[:max_batch, ..., None],
+                                         bbxs[:max_batch]).cpu(),
+                EXPORT_KERNELS, expect)
+        check(names == expect,
+              f"export {name}: the profiler saw {names} in one dispatch of "
+              f"the loaded program, expected 1 K1 and {convs} K3")
+        fps = {"live": [], "loaded": []}
+        for who in ("live", "loaded", "loaded", "live"):
+            fn = pred if who == "live" else loaded
+            ctx = counted(acc) if who == "loaded" else contextlib.nullcontext()
+            with ctx:
+                t1 = time.perf_counter()
+                fn(frames, bbxs)
+                fps[who].append(n_frames / (time.perf_counter() - t1))
+        rows[name] = {
+            "artifact_mb": os.path.getsize(path) / 2 ** 20,
+            "export_s": export_s, "load_s": load_s,
+            "max_joint_gap_mm": gap, "max_joint_gap_mm_f32_entry": gap32,
+            "launches_checked": mine, "profiler_kernels_one_dispatch": names,
+            "frames_per_s_loaded": statistics.mean(fps["loaded"]),
+            "frames_per_s_live": statistics.mean(fps["live"]),
+            "frames_per_s_runs": fps}
+        check(np.isfinite(got).all() and got.shape == (n_frames,
+                                                      3 * cfg.num_joint),
+              f"export {name}: output {got.shape}")
+        check(gap <= XYZ_TOL_MM and gap32 <= XYZ_TOL_MM,
+              f"export {name}: loaded program {gap} / {gap32} mm from the "
+              f"live predictor")
+        if name == "int8":
+            loaded_int8 = loaded
+        del pred
+        torch.cuda.empty_cache()
+    # one daemon run on the loaded int8 artifact
+    with counted(acc):
+        with Server(loaded_int8, socket_address(root, "export"),
+                    max_queue=n_frames) as srv:
+            served, dt = serve_clients(srv, frames, bbxs, 4)
+            st = srv.stats()
+        direct = loaded_int8(frames, bbxs)
+    server_gap = float(np.abs(served - direct).max())
+    row = {"phase": "export", "config": net_cfg.__dict__,
+           "max_batch": max_batch, "frames": n_frames,
+           "frame_dtype": "uint16", **rows,
+           "server_int8": {"frames_per_s": n_frames / dt, "stats": st,
+                           "max_mm_from_direct": server_gap},
+           "launches": acc, "seconds": time.perf_counter() - t0}
+    emit(row)
+    check(st["errors"] == 0 and st["responses"] == n_frames
+          and server_gap <= 1e-3,
+          f"export: the server on the int8 artifact: {st}, {server_gap} mm")
+    check(acc["weighted_mean_shift"] == 0 and acc["int8_dwconv_requant"] == 0
+          and acc["fused_decode_by_path"]["strided"] == 0,
+          f"export: off-path launches {acc}")
+    return acc
+
+
+def phase_multigpu(variables, net_cfg: NetConfig, root: str, train_root: str,
+                   sub: int = 2, b: int = 4, n_frames: int = 1024,
+                   max_batch: int = 256, n_calib: int = 64,
+                   device: str = "cuda", backend: str = "nccl"):
+    """Data parallelism on a one-rank NCCL group (``parallel``): one
+    synchronized training step (renorm moments and gradients all-reduced
+    over the group) against the plain step from the same weights on the
+    same batch, full width, float32, dropout 0, cuDNN's deterministic
+    algorithms (the loss and the largest parameter, gradient and
+    moving-statistic gaps); ``Predictor(mesh=...)`` against ``Predictor``
+    in float32 and calibrated int8 on 1,024 uint16 frames. Returns the
+    kernels' launches of the mesh predictors. (``device``, ``backend``: a
+    CPU rehearsal passes ``"cpu"``, ``"gloo"``.)"""
+    import socket as socket_mod
+
+    import torch.distributed as dist
+
+    from densereg_torch.models import sync_batch_renorm
+    from densereg_torch.parallel import initialize_distributed, make_mesh
+    from densereg_torch.utils.device import topology_report
+
+    t0 = time.perf_counter()
+    with socket_mod.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multi = initialize_distributed(f"localhost:{port}", 1, 0,
+                                   backend=backend)
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        mesh = make_mesh(devices=None if device == "cuda" else [device])
+        check(not multi and dist.get_backend() == backend
+              and mesh.world_size == 1 and mesh.size == 1,
+              f"multigpu: mesh {mesh}, backend {dist.get_backend()}")
+        spec, _ = train_data(os.path.join(train_root, "data"))
+        cfg = dataclasses.replace(net_cfg, dropout_rate=0.0,
+                                  compute_dtype="float32")
+        tcfg = TrainConfig(batch_size=b, sub_batch=sub, augment=False)
+        init = init_train_variables(cfg, SEED)
+        crops = pose_crops(spec, sub * b, cfg.input_hw, mesh.devices[0])
+        batch = {k: v.reshape((sub, b) + tuple(v.shape[1:]))
+                 for k, v in crops.items()}
+        out = {}
+        torch.backends.cudnn.deterministic = True
+        for kind in ("plain", "synced"):
+            state = create_train_state(cfg, tcfg, 100.0, variables=init,
+                                       device=mesh.devices[0])
+            group = None
+            if kind == "synced":
+                group = mesh.group
+                sync_batch_renorm(state.net, group)
+            m = train_step(state, batch, cfg, tcfg, with_grads=True,
+                           group=group)
+            out[kind] = (float(m["loss"]),
+                         {k: g.double() for k, g in m["grads"].items()},
+                         {k: v.double() for k, v in
+                          state.net.state_dict().items()})
+        (l_p, g_p, s_p), (l_s, g_s, s_s) = out["plain"], out["synced"]
+        grad_rel = max(float((g_s[k] - g).norm() / (g.norm() + 1e-30))
+                       for k, g in g_p.items())
+        param_gap = max(float((s_s[k] - v).abs().max())
+                        for k, v in s_p.items())
+        step_row = {"loss_plain": l_p, "loss_synced": l_s,
+                    "loss_rel_diff": abs(l_s - l_p) / abs(l_p),
+                    "max_grad_rel_norm": grad_rel,
+                    "max_param_and_stats_gap": param_gap}
+        check(step_row["loss_rel_diff"] <= LOSS_RTOL
+              and grad_rel <= GRAD_REL_TOL
+              and param_gap <= STATS_ATOL,
+              f"multigpu: synchronized step off the plain step: {step_row}")
+        torch.backends.cudnn.deterministic = deterministic
+        del out, batch
+        torch.cuda.empty_cache()
+
+        frames, bbxs = hand_frames(np.random.default_rng(SEED + 17),
+                                   n_frames)
+        calib = hand_frames(np.random.default_rng(SEED + 4), n_calib)
+        bf16 = dataclasses.replace(net_cfg, compute_dtype="bfloat16")
+        acc, serve_rows = {}, {}
+        for name, (pcfg, kw) in {
+                "float32": (dataclasses.replace(
+                    net_cfg, compute_dtype="float32"), {}),
+                "int8": (bf16, {"quantize": True,
+                                "calibration": calib})}.items():
+            plain = Predictor(variables, pcfg, ICVL, max_batch=max_batch,
+                              device=device, **kw)
+            meshed = Predictor(variables, pcfg, ICVL, max_batch=max_batch,
+                               mesh=mesh, **kw)
+            meshed.warmup(with_u16=False)
+            want = plain(frames, bbxs)
+            with counted(acc):
+                t1 = time.perf_counter()
+                got = meshed(frames, bbxs)
+                dt = time.perf_counter() - t1
+            gap = float(np.abs(got - want).max())
+            serve_rows[name] = {"max_joint_gap_mm": gap,
+                                "frames_per_s_mesh": n_frames / dt}
+            check(np.isfinite(got).all() and gap <= XYZ_TOL_MM,
+                  f"multigpu: Predictor(mesh) {name} {gap} mm off")
+            del plain, meshed
+            torch.cuda.empty_cache()
+        row = {"phase": "multigpu", "backend": backend,
+               "world_size": mesh.world_size, "mesh_size": mesh.size,
+               "topology": topology_report(),
+               "step": {"config": cfg.__dict__, "batch": [sub, b],
+                        **step_row},
+               "predictor_mesh": serve_rows, "launches": acc,
+               "seconds": time.perf_counter() - t0}
+        emit(row)
+        dispatches = -(-n_frames // max_batch)
+        check(acc["fused_decode"] == 2 * dispatches
+              and acc["int8_gemm_requant"] > 0
+              and acc["weighted_mean_shift"] == 0
+              and acc["int8_dwconv_requant"] == 0,
+              f"multigpu: the mesh predictors launched {acc}")
+        return acc
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -2770,6 +3071,11 @@ def main() -> int:
             variables, net_cfg, "cuda", os.path.join(root, "tooling"),
             train_root)
         daemon_launches = phase_daemon(variables, net_cfg, "cuda", root)
+        # the export artifacts and the data-parallel path, on counts of
+        # their own
+        export_launches = phase_export(variables, net_cfg, "cuda", root)
+        multigpu_launches = phase_multigpu(variables, net_cfg, root,
+                                           train_root)
 
     # the serving bucket as the float nets (hm_pixels) and the int8 net
     # (pixels) hand it over
@@ -2792,6 +3098,9 @@ def main() -> int:
         "tooling_launches_by_path": tooling_launches["fused_decode_by_path"],
         "daemon_launches": daemon_launches["fused_decode"],
         "daemon_launches_by_path": daemon_launches["fused_decode_by_path"],
+        "export_launches": export_launches["fused_decode"],
+        "export_launches_by_path": export_launches["fused_decode_by_path"],
+        "multigpu_launches": multigpu_launches["fused_decode"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"],
         "device_ms_channels_last": int8_row["device_ms"],
@@ -2811,6 +3120,8 @@ def main() -> int:
         "variants_launches": variants_launches["int8_gemm_requant"],
         "tooling_launches": tooling_launches["int8_gemm_requant"],
         "daemon_launches": daemon_launches["int8_gemm_requant"],
+        "export_launches": export_launches["int8_gemm_requant"],
+        "multigpu_launches": multigpu_launches["int8_gemm_requant"],
         "max_abs_err": k3_total["max_abs_err"],
         "ms": k3_total["ms"], "device_ms": k3_total["device_ms"],
         "plain_ms": k3_total["plain_ms"],
@@ -2829,6 +3140,8 @@ def main() -> int:
         "variants_launches": variants_launches["weighted_mean_shift"],
         "tooling_launches": tooling_launches["weighted_mean_shift"],
         "daemon_launches": daemon_launches["weighted_mean_shift"],
+        "export_launches": export_launches["weighted_mean_shift"],
+        "multigpu_launches": multigpu_launches["weighted_mean_shift"],
         "max_abs_err": k2_row["max_abs_err"],
         "ms": k2_row["ms"], "device_ms": k2_row["device_ms"],
         "host_us": k2_row["host_us"], "plain_ms": k2_row["plain_ms"],
@@ -2850,6 +3163,8 @@ def main() -> int:
         "variants_launches": variants_launches["int8_dwconv_requant"],
         "tooling_launches": tooling_launches["int8_dwconv_requant"],
         "daemon_launches": daemon_launches["int8_dwconv_requant"],
+        "export_launches": export_launches["int8_dwconv_requant"],
+        "multigpu_launches": multigpu_launches["int8_dwconv_requant"],
         "calls_per_forward": dw_total["calls_per_forward"],
         "max_abs_err": max(t["max_abs_err"] for t in dw_totals.values()),
         "ms": dw_total["ms"], "device_ms": dw_total["device_ms"],

@@ -8,6 +8,15 @@ package. Entry points run on CUDA unless given ``device="cpu"``.
 """
 
 from densereg_torch.config import CameraConfig, EvalConfig, NetConfig
-from densereg_torch.serving import Predictor
 
 __all__ = ["CameraConfig", "EvalConfig", "NetConfig", "Predictor"]
+
+
+def __getattr__(name):
+    # Predictor is imported on first use: the package's import stays free
+    # of the model code, which a loaded export artifact does not need
+    if name == "Predictor":
+        from densereg_torch.serving import Predictor
+
+        return Predictor
+    raise AttributeError(f"module 'densereg_torch' has no attribute {name!r}")

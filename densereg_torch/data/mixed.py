@@ -9,6 +9,10 @@ the joint count (the network heads are sized by it) — e.g. MSRA15 (21) with
 BigHand (21), or several subjects/subsets of one dataset; ICVL(16)/NYU(14)/
 MSRA(21) can be mixed after remapping annotations to a common skeleton,
 which is the user's modelling decision, not the pipeline's.
+
+With a ``mesh`` each member pipeline yields this rank's share of the batch
+(``InputPipeline``'s multi-process form); every rank draws the same
+sequence of members, since the mixture's generator is seeded alike on all.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ class MixedPipeline:
     def __init__(self, specs: Sequence[DatasetSpec], batch_size: int,
                  sub_batch: int = 1, input_hw=(128, 128),
                  weights: Optional[Sequence[float]] = None, seed: int = 0,
-                 device="cuda"):
+                 mesh=None, device="cuda"):
         jnts = {s.jnt_num for s in specs}
         if len(jnts) != 1:
             raise ValueError(
@@ -38,7 +42,7 @@ class MixedPipeline:
         self._rng = np.random.default_rng(seed)
         self.pipelines = [
             InputPipeline(s, batch_size, sub_batch, input_hw,
-                          seed=seed + 977 * i, device=device)
+                          seed=seed + 977 * i, mesh=mesh, device=device)
             for i, s in enumerate(specs)
         ]
 

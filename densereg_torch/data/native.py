@@ -1,17 +1,23 @@
-"""ctypes binding for the native depthio codec (native/depthio.cc), a
-copy of ``densereg_tpu/data/native.py`` bound to the same ``native/``
-directory and library.
+"""ctypes binding for the native depthio codec (native/depthio.cc), the
+port's copy of ``densereg_tpu/data/native.py``.
 
-Builds ``libdepthio.so`` on demand with ``make`` (g++ + zlib only) and falls
-back to the PIL path in :mod:`densereg_torch.data.png16` when unavailable —
-callers never need to care.  The batch API decodes frames on a C++ thread
-pool with the GIL released (ctypes drops it for the call), which is what the
-single-threaded PIL loop in the converters cannot do.
+Compiles ``native/depthio.cc`` on demand with ``g++`` (zlib only) into the
+port's git-ignored ``densereg_torch/_build/``, under a name that carries a
+hash of the source and of the flags, and falls back to the PIL path in
+:mod:`densereg_torch.data.png16` when the compiler or zlib is missing, so
+callers never need to care. The library is written to a temporary file and
+renamed into place, so no process, of this package or another, ever opens a
+half-written one, however many build it at once; the shared
+``native/libdepthio.so`` of the JAX package is never written. The batch API
+decodes frames on a C++ thread pool with the GIL released (ctypes drops it
+for the call), which is what the single-threaded PIL loop in the converters
+cannot do.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -19,13 +25,43 @@ from typing import List, Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libdepthio.so")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(os.path.dirname(_ROOT), "native", "depthio.cc")
+_BUILD_DIR = os.path.join(_ROOT, "_build")
+# native/Makefile's flags and libraries
+_CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
+_LIBS = ("-lz", "-lpthread")
 
 _lib = None
 _lock = threading.Lock()
 _build_failed = False
+
+
+def library_path() -> str:
+    """Where the library of the current source and flags lives."""
+    digest = hashlib.sha256()
+    with open(_SOURCE, "rb") as f:
+        digest.update(f.read())
+    digest.update(" ".join(_CXX_FLAGS + _LIBS).encode())
+    return os.path.join(_BUILD_DIR, f"libdepthio-{digest.hexdigest()[:16]}.so")
+
+
+def _build() -> str:
+    """The library's path, compiled first where it is missing: to a
+    temporary file of this process, then renamed into place (atomic)."""
+    path = library_path()
+    if not os.path.exists(path):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        try:
+            subprocess.run([os.environ.get("CXX", "g++"), *_CXX_FLAGS,
+                            _SOURCE, "-o", tmp, *_LIBS], check=True,
+                           capture_output=True, timeout=120)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return path
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -35,16 +71,9 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
-        if not os.path.exists(_LIB_PATH):
-            try:
-                subprocess.run(["make", "-C", _NATIVE_DIR, "-s"], check=True,
-                               capture_output=True, timeout=120)
-            except Exception:
-                _build_failed = True
-                return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
+            lib = ctypes.CDLL(_build())
+        except (OSError, subprocess.SubprocessError):
             _build_failed = True
             return None
         lib.depthio_decode_png.restype = ctypes.c_int

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +28,16 @@ from densereg_torch.preprocess import (
     preprocess_batch_from_pose,
 )
 from densereg_torch.wire import check_wire, decode_dm_u16, encode_dm_u16
+
+
+def partition_for_host(items, host_id: int, num_hosts: int):
+    """Disjoint round-robin split of shards across processes (a copy of
+    ``densereg_tpu/data/pipeline.py::partition_for_host``); when there are
+    fewer shards than processes every process keeps them all (they then
+    diverge by their process-seeded shuffle order instead)."""
+    if num_hosts <= 1 or len(items) < num_hosts:
+        return list(items)
+    return list(items[host_id::num_hosts])
 
 
 def _load_frames(reader, idxs, spec: DatasetSpec):
@@ -84,16 +94,30 @@ class InputPipeline:
     resumed run picks the stream up). ``host_preprocess`` crops in the
     producers, on the CPU, and ``wire_dtype`` is how the crop crosses the
     bus (``float32``, or ``uint16`` with ``host_preprocess``).
+
+    With a ``mesh`` (``parallel.make_mesh``) of n processes, rank r reads
+    its :func:`partition_for_host` share of the shards and yields its
+    ``batch_size / n`` frames of each micro-batch (``local_batch``), on the
+    mesh's first device, its producer ``i`` seeded with ``seed + 7919 i +
+    104729 r``, as the JAX pipeline does under ``jax.distributed``.
     """
 
     def __init__(self, spec: DatasetSpec, batch_size: int, sub_batch: int = 1,
                  input_hw=(128, 128), seed: int = 0, prefetch: int = 4,
                  num_workers: int = 1, skip: int = 0,
                  host_preprocess: bool = False, wire_dtype: str = "float32",
-                 device="cuda"):
+                 mesh=None, device="cuda"):
         check_wire(host_preprocess, wire_dtype)
+        self._num_hosts = mesh.world_size if mesh is not None else 1
+        self._host_id = mesh.rank if mesh is not None else 0
+        if batch_size % self._num_hosts:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"{self._num_hosts} processes")
+        if mesh is not None:
+            device = mesh.devices[0]
         self.spec = spec
         self.batch_size = batch_size
+        self.local_batch = batch_size // self._num_hosts
         self.sub_batch = sub_batch
         self.input_hw = tuple(input_hw)
         self.host_preprocess = host_preprocess
@@ -105,7 +129,8 @@ class InputPipeline:
         self._stop = threading.Event()
         self._threads = [
             threading.Thread(target=self._producer,
-                             args=(np.random.default_rng(seed + 7919 * i),
+                             args=(np.random.default_rng(
+                                 seed + 7919 * i + 104729 * self._host_id),
                                    skip),
                              daemon=True)
             for i in range(max(num_workers, 1))]
@@ -125,8 +150,10 @@ class InputPipeline:
 
     def _producer(self, rng: np.random.Generator, skip: int):
         try:
-            readers = [r for r in self.spec.readers() if len(r) > 0]
-            need = self.batch_size * self.sub_batch
+            readers = partition_for_host(
+                [r for r in self.spec.readers() if len(r) > 0],
+                self._host_id, self._num_hosts)
+            need = self.local_batch * self.sub_batch
             pool: List[Tuple[int, np.ndarray]] = []   # (reader, frames)
             total = 0
             while not self._stop.is_set():
@@ -164,7 +191,7 @@ class InputPipeline:
 
     def __iter__(self) -> Iterator[dict]:
         h, w = self.input_hw
-        sub, b = self.sub_batch, self.batch_size
+        sub, b = self.sub_batch, self.local_batch
         while True:
             item = self._q.get()
             if isinstance(item, Exception):
@@ -202,12 +229,30 @@ class TestPipeline:
     stored boxes where the spec uses them. The last batch is padded by
     repeating its last frame, so every batch has ``batch_size`` frames.
     ``host_preprocess`` and ``wire_dtype`` as in :class:`InputPipeline`:
-    the crop is made on the CPU and decoded on ``device``."""
+    the crop is made on the CPU and decoded on ``device``.
+
+    ``shard_slice`` restricts the pass to a contiguous range of
+    :meth:`unique_readers`, the unit that the multi-process evaluation
+    (``eval.loop.evaluate_multihost``) splits: contiguous ranges keep the
+    dataset's order when the parts are concatenated. A ``mesh`` of more
+    than one process is refused, as in the JAX package: one global batch
+    is not split across processes at test time; each process evaluates its
+    own shards instead."""
 
     def __init__(self, spec: DatasetSpec, batch_size: int,
                  input_hw=(128, 128), host_preprocess: bool = False,
-                 wire_dtype: str = "float32", device="cuda"):
+                 wire_dtype: str = "float32",
+                 shard_slice: Optional[slice] = None, mesh=None,
+                 device="cuda"):
         check_wire(host_preprocess, wire_dtype)
+        if mesh is not None:
+            if mesh.world_size > 1:
+                raise NotImplementedError(
+                    "TestPipeline cannot split one global batch across "
+                    "processes; use eval.loop.evaluate_multihost "
+                    "(shard-partitioned local inference, rank-0 merge)")
+            device = mesh.devices[0]
+        self.shard_slice = shard_slice
         self.spec = spec
         self.batch_size = batch_size
         self.input_hw = tuple(input_hw)
@@ -230,7 +275,10 @@ class TestPipeline:
     def __iter__(self) -> Iterator[dict]:
         bs = self.batch_size
         buf_d, buf_p, buf_n, buf_b = [], [], [], []
-        for reader in self.unique_readers():
+        readers = self.unique_readers()
+        if self.shard_slice is not None:
+            readers = readers[self.shard_slice]
+        for reader in readers:
             d, p, names, bbx = _load_frames(reader, np.arange(len(reader)),
                                             self.spec)
             for i in range(len(names)):

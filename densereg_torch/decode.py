@@ -2,8 +2,8 @@
 
 Mirrors ``densereg_tpu/decode.py``. The plain form below runs on any
 device and is the semantics oracle of the fused CUDA kernel
-(``densereg_torch.ops.fused_decode``), which :func:`decode_poses` runs for
-CUDA tensors.
+(``densereg_torch.ops.fused_decode``), whose custom op :func:`decode_poses`
+runs.
 
 Arithmetic follows the JAX decode operation by operation (same
 association, no fused multiply-add), so that a candidate's rounded
@@ -166,31 +166,32 @@ def decode_plain(hms, hm3s, ums, tiny_dms, cfgs, coms,
 
 
 def decode_poses(hms, hm3s, ums, tiny_dms, cfgs, coms,
-                 cfg: EvalConfig = EvalConfig()):
-    """Full decode of the last stack's heads to xyz joints (mm).
+                 cfg: EvalConfig = EvalConfig(), candidates: bool = False):
+    """Full decode of the last stack's heads to xyz joints (mm), through the
+    custom op ``densereg::fused_decode``: the fused kernel on CUDA tensors,
+    :func:`decode_plain` on CPU tensors.
 
     Args:
       hms/hm3s: (b, h, w, j); ums: (b, h, w, 3j) with channel ``3*j + c``;
       tiny_dms: (b, h, w, 1) normalized depth at head resolution;
       cfgs: (b, 6); coms: (b, 3). Any strides.
+      candidates: also return the plain decode's candidates and weights.
     Returns:
-      dict with ``xyz (b, 3j) mm`` and ``normed (b, j, 3)``. On a CUDA
-      tensor the fused kernel runs and ``candidates``/``weights`` are None;
-      otherwise they are ``(b, j, n, 3)`` and ``(b, j, n)``.
+      dict with ``xyz (b, 3j) mm``, ``normed (b, j, 3)``, and
+      ``candidates (b, j, n, 3)`` and ``weights (b, j, n)`` (None unless
+      asked for).
     """
-    b = hms.shape[0]
-    if hms.is_cuda:
-        from densereg_torch.ops.fused_decode import fused_decode
+    from densereg_torch.ops.fused_decode import fused_decode
 
-        normed = fused_decode(hms, hm3s, ums, tiny_dms, cfgs, coms,
-                              num_pt=cfg.num_candidates,
-                              num_it=cfg.mean_shift_iters,
-                              band_width=cfg.band_width,
-                              vote_grid=cfg.vote_grid)
-        cans = weights = None
-    else:
-        normed, cans, weights = decode_plain(hms, hm3s, ums, tiny_dms, cfgs,
-                                             coms, cfg)
+    b = hms.shape[0]
+    normed = fused_decode(hms, hm3s, ums, tiny_dms, cfgs, coms,
+                          num_pt=cfg.num_candidates,
+                          num_it=cfg.mean_shift_iters,
+                          band_width=cfg.band_width, vote_grid=cfg.vote_grid)
+    cans = weights = None
+    if candidates:
+        _, cans, weights = decode_plain(hms, hm3s, ums, tiny_dms, cfgs, coms,
+                                        cfg)
     xyz = geometry.unnorm_xyz_pose(normed.reshape(b, -1), coms)
     return {"xyz": xyz, "normed": normed, "candidates": cans,
             "weights": weights}

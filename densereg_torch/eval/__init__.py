@@ -1,4 +1,8 @@
-from densereg_torch.eval.loop import evaluate_stream, make_infer_fn
+from densereg_torch.eval.loop import (
+    evaluate_multihost,
+    evaluate_stream,
+    make_infer_fn,
+)
 from densereg_torch.eval.metrics import (
     max_joint_error,
     mean_joint_error,
@@ -11,6 +15,6 @@ from densereg_torch.eval.writer import (
     write_error_curve,
 )
 
-__all__ = ["ResultWriter", "evaluate_stream", "make_infer_fn",
+__all__ = ["ResultWriter", "evaluate_multihost", "evaluate_stream", "make_infer_fn",
            "max_joint_error", "mean_joint_error", "read_result_file",
            "summarize_percentages", "threshold_curve", "write_error_curve"]

@@ -5,15 +5,17 @@ Mirrors ``densereg_tpu/eval/loop.py``: ``make_infer_fn`` builds the
 inference of one batch (the decode runs the fused kernel on a CUDA
 device), and ``evaluate_stream`` feeds it a batch stream, writes the
 predictions and the error curve, and stops exactly at ``exact_num``
-frames. The multi-process evaluation (``evaluate_multihost``) is not
-ported yet.
+frames. ``evaluate_multihost`` runs it in several processes, each on its
+own shards, and merges the results on rank 0.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
 
 from densereg_torch import decode as decode_mod
@@ -128,3 +130,102 @@ def evaluate_stream(infer_fn, variables, batches: Iterable[dict],
         "percentages": summarize_percentages(max_errors) if max_errors else {},
         "fps": n_done / max(dt, 1e-9),
     }
+
+
+def evaluate_multihost(infer_fn, variables, spec, batch_size, input_hw,
+                       result_path, error_path=None, log_fn=print,
+                       host_preprocess: bool = False,
+                       wire_dtype: str = "float32", mesh=None,
+                       device="cuda") -> dict:
+    """Multi-process evaluation, shard-partitioned, merged on rank 0 (the
+    port of ``densereg_tpu/eval/loop.py::evaluate_multihost``).
+
+    Each process of ``mesh``'s group (default: the default process group)
+    evaluates a contiguous range of the deduplicated shard list on its own
+    device (``mesh.devices[0]``, else ``device``), with no collective but
+    two barriers, and writes ``<result_path>.part<k>`` and its errors;
+    rank 0 then concatenates the parts in shard order, so the merged dump
+    is line for line that of one process. The ``exact_num`` truncation
+    holds globally: each process's budget is clamped against the frames
+    that precede its range in dataset order.
+
+    Returns the merged report on rank 0 and each other process's local
+    report. ``result_path`` is required (the part files carry the merge)
+    and must be the same on every process and on a file system that all
+    share: derive it from shared state (a checkpoint's step), never from a
+    process's clock.
+    """
+    import torch.distributed as dist
+
+    from densereg_torch.data.pipeline import TestPipeline
+
+    if not result_path:
+        raise ValueError("evaluate_multihost requires result_path "
+                         "(part files are the merge transport)")
+    group = None if mesh is None else mesh.group
+    if mesh is not None:
+        device = mesh.devices[0]
+    nproc = dist.get_world_size(group)
+    host = dist.get_rank(group)
+
+    readers = TestPipeline(spec, batch_size, input_hw,
+                           device="cpu").unique_readers()
+    counts = [len(r) for r in readers]
+    base, rem = divmod(len(readers), nproc)
+    lo = host * base + min(host, rem)
+    hi = lo + base + (1 if host < rem else 0)
+    cum_before = sum(counts[:lo])
+    local_total = sum(counts[lo:hi])
+    local_exact = max(
+        0, min(cum_before + local_total, spec.exact_num) - cum_before)
+    log_fn(f"[eval mh] process {host}/{nproc}: shards [{lo},{hi}) "
+           f"({local_exact} frames)")
+
+    pipe = TestPipeline(spec, batch_size, input_hw,
+                        host_preprocess=host_preprocess,
+                        wire_dtype=wire_dtype, shard_slice=slice(lo, hi),
+                        device=device)
+    report = evaluate_stream(infer_fn, variables, iter(pipe), local_exact,
+                             f"{result_path}.part{host}", None, log_fn=log_fn)
+    np.save(f"{result_path}.errs{host}.npy",
+            np.asarray(report["max_errors"], np.float64))
+
+    dist.barrier(group)
+    if host == 0:
+        merged_errors = []
+        n_merged = 0
+        with open(result_path, "w") as out:
+            for h in range(nproc):
+                part = f"{result_path}.part{h}"
+                if not os.path.exists(part):
+                    # every process writes its part (maybe empty) before
+                    # the barrier: a missing one means result_path is not
+                    # on a file system that all share
+                    raise FileNotFoundError(
+                        f"{part} missing after the parts barrier: "
+                        f"result_path must be on a filesystem shared by "
+                        f"all {nproc} processes")
+                with open(part) as f:
+                    for line in f:
+                        out.write(line)
+                        n_merged += 1
+        for h in range(nproc):
+            merged_errors.extend(np.load(f"{result_path}.errs{h}.npy")
+                                 .tolist())
+        expected = min(sum(counts), spec.exact_num)
+        if n_merged != expected:
+            raise RuntimeError(
+                f"merged result has {n_merged} frames, expected {expected}: "
+                f"a process evaluated a wrong shard range or dropped frames")
+        if error_path and merged_errors:
+            write_error_curve(merged_errors, error_path)
+        report = {
+            "num_frames": n_merged,
+            "max_errors": merged_errors,
+            "percentages": (summarize_percentages(merged_errors)
+                            if merged_errors else {}),
+            "fps": report["fps"],  # this process's rate; parts ran at once
+        }
+    # keep every process until the merge is on disk
+    dist.barrier(group)
+    return report

@@ -18,6 +18,7 @@ from densereg_torch.models.layers import (
     Residual,
     as_float,
     max_pool_same,
+    sync_batch_renorm,
     upsample_nearest_2x,
 )
 from densereg_torch.models.quantize import (
@@ -31,6 +32,7 @@ __all__ = [
     "Residual", "act_stats_to_flax", "as_float", "calibrate",
     "fold_batch_norm", "from_flax", "init_train_variables",
     "init_variables", "max_pool_same", "quantize_weights",
-    "quantized_net_config", "renorm_clip_schedule", "to_flax",
+    "quantized_net_config", "renorm_clip_schedule", "sync_batch_renorm",
+    "to_flax",
     "upsample_nearest_2x",
 ]

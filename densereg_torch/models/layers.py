@@ -105,6 +105,38 @@ def quantize_output(mod: nn.Module, y: torch.Tensor, dtype: torch.dtype):
     return QTensor(y.to(dtype), quantize(y, s, pitch16=True), s)
 
 
+def _pmean(t: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``t`` over the ranks of ``group`` (``jax.lax.pmean``):
+    the sum by a differentiable all-reduce, then a division by the number
+    of ranks. ``t`` itself without a group."""
+    if group is None:
+        return t
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(t, op=dist.ReduceOp.SUM, group=group) / float(
+        dist.get_world_size(group))
+
+
+def pack_weights(net: nn.Module) -> nn.Module:
+    """Bring the packed weights of every int8 convolution of ``net`` up to
+    date with its ``kernel_q`` (eagerly); returns ``net``. Called before a
+    trace, which cannot check them."""
+    for mod in net.modules():
+        if isinstance(mod, ConvBR) and mod.quantized:
+            mod._packed_weight()
+    return net
+
+
+def sync_batch_renorm(net: nn.Module, group) -> nn.Module:
+    """Set ``group`` on every :class:`BatchRenorm` of ``net`` (None turns
+    the synchronization off); returns ``net``."""
+    for mod in net.modules():
+        if isinstance(mod, BatchRenorm):
+            mod.group = group
+    return net
+
+
 class BatchRenorm(nn.Module):
     """Batch renormalization (``densereg_tpu/models/layers.py::BatchRenorm``)
     on NCHW, in float32, cast back to the input's dtype.
@@ -127,6 +159,16 @@ class BatchRenorm(nn.Module):
     before the first pass), makes a training forward the recompute of a
     rematerialised one: ``r`` and ``d`` come from that pair and the moving
     statistics stay where the first pass left them.
+
+    ``group``, a ``torch.distributed`` process group (set on a whole net by
+    :func:`sync_batch_renorm`), makes the training moments those of the
+    global batch over the group's ranks, two-pass as
+    ``densereg_tpu/models/layers.py`` takes them under ``axis_name``: the
+    mean of the local means, then the mean of the local variances about
+    that mean (every rank holds the same number of frames). The
+    all-reduces are differentiable, so the gradients are those of the
+    global batch. A recompute (``replay``) all-reduces again, on every rank
+    alike.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-3,
@@ -134,6 +176,7 @@ class BatchRenorm(nn.Module):
         super().__init__()
         self.epsilon = epsilon
         self.decay = decay
+        self.group = None
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -147,8 +190,9 @@ class BatchRenorm(nn.Module):
             y = (xf - view(self.mean)) / torch.sqrt(view(self.var)
                                                    + self.epsilon)
         else:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.square(xf - mean.view(1, -1, 1, 1)).mean(dim=(0, 2, 3))
+            mean = _pmean(xf.mean(dim=(0, 2, 3)), self.group)
+            var = _pmean(torch.square(xf - mean.view(1, -1, 1, 1))
+                         .mean(dim=(0, 2, 3)), self.group)
             std = torch.sqrt(var + self.epsilon)
             y = (xf - view(mean)) / view(std)
             mov_mean, mov_var = self.replay or (self.mean, self.var)
@@ -235,7 +279,9 @@ class ConvBR(nn.Module):
         self.register_buffer("bias", torch.zeros(out_ch))
         self.register_buffer("amax", None)
         self.register_buffer("out_amax", None)
-        self._w = None          # kernel_q packed for its kernel
+        # kernel_q packed for its kernel: a buffer outside the state dict,
+        # so that it moves with the module and an exported program holds it
+        self.register_buffer("w_packed", None, persistent=False)
         self._w_key = None
 
     def forward(self, x, r_max=None, d_max=None):
@@ -252,12 +298,21 @@ class ConvBR(nn.Module):
         """``kernel_q`` as its kernel's operand: K3's ``(N, k * k * Cp)``
         (``ops.int8_gemm.pack_weight``) or the depthwise kernel's
         ``(k * k, Cp)`` (``ops.int8_dwconv.pack_dw_weight``), made again
-        whenever ``kernel_q`` moves or changes."""
+        whenever ``kernel_q`` moves or changes. Under ``torch.export`` (a
+        traced tensor has no data pointer to key the cache by) the packed
+        buffer is read as it stands, which :func:`pack_weights` refreshes
+        first, so that the program holds it as a constant; without one the
+        packing is traced into the program."""
+        if torch.compiler.is_compiling():
+            if self.w_packed is not None:
+                return self.w_packed
+            return (pack_dw_weight if self.depthwise
+                    else pack_weight)(self.kernel_q)
         key = (self.kernel_q.data_ptr(), self.kernel_q._version)
         if self._w_key != key:
             pack = pack_dw_weight if self.depthwise else pack_weight
-            self._w, self._w_key = pack(self.kernel_q), key
-        return self._w
+            self.w_packed, self._w_key = pack(self.kernel_q), key
+        return self.w_packed
 
     def _conv(self, x_q, scale, **kw):
         """One kernel launch: the depthwise kernel, or K3's dense entry for

@@ -1,9 +1,11 @@
 """Fused vote decode on CUDA: ``csrc/fused_decode.cu``.
 
 Replaces the TPU kernel ``densereg_tpu/ops/fused_decode.py::fused_decode``.
-On a CUDA tensor :func:`fused_decode` launches the hand-written kernel (or
-raises); on a CPU tensor it runs :func:`fused_decode_reference`, the plain
-torch decode that is the kernel's oracle.
+The kernel is the ``torch.library`` custom op ``densereg::fused_decode``, so
+that an exported program (``densereg_torch.export``) holds it: on a CUDA
+tensor the op launches the hand-written kernel (or raises); on a CPU tensor
+it runs :func:`fused_decode_reference`, the plain torch decode that is the
+kernel's oracle.
 """
 
 from __future__ import annotations
@@ -82,13 +84,24 @@ def fused_decode(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt: int = 5,
     cfgs (b, 6); coms (b, 3), all float32 with any strides -> normalized
     poses (b, j, 3).
 
+    The custom op ``densereg::fused_decode``: on CUDA tensors it launches
+    the kernel (or raises), on CPU tensors it runs
+    :func:`fused_decode_reference`; ``torch.export`` records the op itself.
     Each launch of the kernel adds one to ``fused_decode.launches`` and to
     ``fused_decode.launches_by_path[path]``, ``path`` one of
     :data:`PATHS`.
     """
-    if not hms.is_cuda:
-        return fused_decode_reference(hms, hm3s, ums, tiny_dms, cfgs, coms,
-                                      num_pt, num_it, band_width, vote_grid)
+    impl = _fused_decode_cuda if _build.eager(hms) else fused_decode_op
+    return impl(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt, num_it,
+                band_width, vote_grid)
+
+
+def _fused_decode_cuda(hms: torch.Tensor, hm3s: torch.Tensor,
+                       ums: torch.Tensor, tiny_dms: torch.Tensor,
+                       cfgs: torch.Tensor, coms: torch.Tensor, num_pt: int,
+                       num_it: int, band_width: float,
+                       vote_grid: int) -> torch.Tensor:
+    """The op's CUDA implementation: one launch of the kernel."""
     b, h, w, j = hms.shape
     dev = hms.device
     f32 = torch.float32
@@ -130,6 +143,25 @@ def fused_decode(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt: int = 5,
     fused_decode.launches += 1
     fused_decode.launches_by_path[PATHS[path]] += 1
     return out
+
+
+fused_decode_op = torch.library.custom_op(
+    "densereg::fused_decode", _fused_decode_cuda, mutates_args=(),
+    device_types="cuda")
+
+
+@fused_decode_op.register_kernel("cpu")
+def _fused_decode_cpu(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt, num_it,
+                      band_width, vote_grid):
+    return fused_decode_reference(hms, hm3s, ums, tiny_dms, cfgs, coms,
+                                  num_pt, num_it, band_width, vote_grid)
+
+
+@fused_decode_op.register_fake
+def _fused_decode_fake(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt, num_it,
+                       band_width, vote_grid):
+    b, _, _, j = hms.shape
+    return hms.new_empty((b, j, 3), dtype=torch.float32)
 
 
 fused_decode.launches = 0

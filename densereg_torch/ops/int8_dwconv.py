@@ -5,14 +5,16 @@ The port's own kernel, in K3's family. It has no Pallas counterpart: the
 JAX package runs the depthwise convolutions of the ``um_v1_lite`` int8 net
 as XLA's grouped int8 convolution (``densereg_tpu/models/layers.py:237-244``,
 ``feature_group_count`` = C), which torch lacks on CUDA, and K3 takes no
-groups. :func:`int8_dwconv_requant` launches the hand-written kernel on
-CUDA tensors (or raises) and runs its plain version,
+groups. :func:`int8_dwconv_requant` calls the custom op
+``densereg::int8_dwconv_requant``, which launches the hand-written kernel
+on CUDA tensors (or raises) and runs its plain version,
 :func:`int8_dwconv_requant_reference`, on CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,6 +23,9 @@ from densereg_torch.ops.int8_gemm import (
     F_KINDS,
     _aligned,
     _as_scale,
+    _emitted,
+    _filled,
+    _outputs,
     _pad16,
     requant_reference,
     same_pads,
@@ -117,10 +122,20 @@ def int8_dwconv_requant(x_q, w_packed, k: int, scale, bias, s_y=None, *,
     if x_q.numel() < 1:
         raise ValueError(f"int8_dwconv_requant: empty input "
                          f"{tuple(x_q.shape)}")
-    kw = dict(relu=relu, emit_q=emit_q, emit_f=emit_f, f_dtype=f_dtype)
-    if not x_q.is_cuda:
-        return int8_dwconv_requant_reference(x_q, w_packed, k, scale, bias,
-                                             s_y, **kw)
+    if emit_q:
+        s_y = _as_scale(s_y, x_q.device)
+    impl = _int8_dwconv_cuda if _build.eager(x_q) else int8_dwconv_requant_op
+    return _emitted(*impl(x_q, w_packed, k, scale, bias, s_y, relu, emit_q,
+                          emit_f, f_dtype), emit_q, emit_f)
+
+
+def _int8_dwconv_cuda(x_q: torch.Tensor, w_packed: torch.Tensor, k: int,
+                      scale: torch.Tensor, bias: torch.Tensor,
+                      s_y: Optional[torch.Tensor], relu: bool, emit_q: bool,
+                      emit_f: bool, f_dtype: torch.dtype
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op's CUDA implementation: one launch of the kernel."""
+    b, h, w, c = x_q.shape
     if k not in KERNEL_SIZES:
         raise NotImplementedError(f"int8_dwconv_requant: the kernel is built "
                                   f"for k in {KERNEL_SIZES}, got {k}")
@@ -136,16 +151,13 @@ def int8_dwconv_requant(x_q, w_packed, k: int, scale, bias, s_y=None, *,
     vec = (strides[3] == 1 and strides[2] >= c
            and _aligned(x_q, *strides[:3]))
     scale, bias = scale.contiguous(), bias.contiguous()
-    cp = _pad16(c)
-    q = f = None
+    q, f = _outputs(x_q, (b, h, w), c, emit_q, emit_f, f_dtype)
     sy_ptr = q_ptr = f_ptr = None
     f_vec = 0
     if emit_q:
         s_y = _as_scale(s_y, dev)
-        q = torch.empty((b, h, w, cp), dtype=torch.int8, device=dev)[..., :c]
         sy_ptr, q_ptr = s_y.data_ptr(), q.data_ptr()
     if emit_f:
-        f = torch.empty((b, h, w, c), dtype=f_dtype, device=dev)
         f_ptr = f.data_ptr()
         f_vec = 16 // f.element_size()
         if c % f_vec:
@@ -154,13 +166,33 @@ def int8_dwconv_requant(x_q, w_packed, k: int, scale, bias, s_y=None, *,
         err = _lib().dw_launch(
             x_q.data_ptr(), *strides, int(vec), b, h, w, c, k,
             w_packed.data_ptr(), scale.data_ptr(), bias.data_ptr(), sy_ptr,
-            q_ptr, cp, f_ptr, F_KINDS[f_dtype] if emit_f else 0, f_vec,
-            int(relu), _build.stream(dev))
+            q_ptr, _pad16(c), f_ptr, F_KINDS[f_dtype] if emit_f else 0,
+            f_vec, int(relu), _build.stream(dev))
     if err != 0:
         raise RuntimeError(f"int8_dwconv_requant: kernel launch failed with "
                            f"cudaError_t {err}")
     int8_dwconv_requant.launches += 1
     return q, f
+
+
+int8_dwconv_requant_op = torch.library.custom_op(
+    "densereg::int8_dwconv_requant", _int8_dwconv_cuda, mutates_args=(),
+    device_types="cuda")
+
+
+@int8_dwconv_requant_op.register_kernel("cpu")
+def _int8_dwconv_requant_cpu(x_q, w_packed, k, scale, bias, s_y, relu,
+                             emit_q, emit_f, f_dtype):
+    return _filled(*int8_dwconv_requant_reference(
+        x_q, w_packed, k, scale, bias, s_y, relu=relu, emit_q=emit_q,
+        emit_f=emit_f, f_dtype=f_dtype), x_q, f_dtype)
+
+
+@int8_dwconv_requant_op.register_fake
+def _int8_dwconv_requant_fake(x_q, w_packed, k, scale, bias, s_y, relu,
+                              emit_q, emit_f, f_dtype):
+    return _outputs(x_q, x_q.shape[:3], x_q.shape[3], emit_q, emit_f,
+                    f_dtype)
 
 
 int8_dwconv_requant.launches = 0

@@ -11,7 +11,9 @@ Two entries launch the one kernel:
   convolution that reads the NHWC activation in place, with weights packed
   by :func:`pack_weight`.
 
-On CUDA tensors each launches the hand-written kernel (or raises); on CPU
+Each entry is a ``torch.library`` custom op (``densereg::int8_gemm_requant``,
+``densereg::int8_conv_requant``), so that an exported program holds it. On
+CUDA tensors each launches the hand-written kernel (or raises); on CPU
 tensors each runs its plain torch form (:func:`int8_gemm_requant_reference`,
 :func:`int8_conv_requant_reference`), the kernel's oracle.
 """
@@ -205,27 +207,53 @@ def _aligned(t: torch.Tensor, *strides: int) -> bool:
     return t.data_ptr() % 16 == 0 and all(s % 16 == 0 for s in strides)
 
 
+def _outputs(ref: torch.Tensor, lead, n: int, emit_q: bool, emit_f: bool,
+             f_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """New ``(q, f)`` of shape ``lead + (N,)`` on ``ref``'s device, as the
+    kernel (CUDA) or the plain version (CPU) lays them out: on the card q's
+    rows start every ``ceil(N / 16) * 16`` bytes. The one not asked for is
+    an empty ``(0,)`` tensor: a custom op returns a fixed number of
+    tensors. Both the implementations and the fake of each entry allocate
+    through here, so that their layouts agree."""
+    lead = tuple(lead)
+    if not emit_q:
+        q = ref.new_empty((0,), dtype=torch.int8)
+    elif ref.is_cuda:
+        q = ref.new_empty(lead + (_pad16(n),), dtype=torch.int8)[..., :n]
+    else:
+        q = ref.new_empty(lead + (n,), dtype=torch.int8)
+    f = ref.new_empty(lead + (n,) if emit_f else (0,), dtype=f_dtype)
+    return q, f
+
+
+def _filled(q, f, ref, f_dtype):
+    """A plain version's ``(q, f)`` with each None an empty ``(0,)``
+    tensor, as the custom ops return them."""
+    if q is None:
+        q = ref.new_empty((0,), dtype=torch.int8)
+    if f is None:
+        f = ref.new_empty((0,), dtype=f_dtype)
+    return q, f
+
+
 def _launch(x, strides, geom, w, ldw, kw, n, scale, bias, s_y, relu,
             emit_q, emit_f, f_dtype):
     """Allocate the outputs and launch the kernel on ``x``'s device and
     current stream. ``geom = (b, h, w, oh, ow, cp, k, stride, ph, pw)``.
     Returns ``(q, f)`` as ``(b * oh * ow, N)`` views, q with a 16-byte row
-    pitch."""
+    pitch (each an empty ``(0,)`` tensor where not asked for)."""
     b, _, _, oh, ow = geom[:5]
-    m = b * oh * ow
     dev = x.device
     scale = scale.contiguous()
     bias = bias.contiguous()
-    q = f = None
+    q, f = _outputs(x, (b * oh * ow,), n, emit_q, emit_f, f_dtype)
     sy_ptr = q_ptr = f_ptr = None
     ldq = ldf = f_vec = 0
     if emit_q:
         s_y = _as_scale(s_y, dev)
-        ldq = _pad16(n)
-        q = torch.empty((m, ldq), dtype=torch.int8, device=dev)[:, :n]
+        ldq = q.stride(0)
         sy_ptr, q_ptr = s_y.data_ptr(), q.data_ptr()
     if emit_f:
-        f = torch.empty((m, n), dtype=f_dtype, device=dev)
         f_ptr, ldf = f.data_ptr(), n
         f_vec = 16 // f.element_size()
         while f_vec > 1 and n % f_vec:
@@ -241,6 +269,12 @@ def _launch(x, strides, geom, w, ldw, kw, n, scale, bias, s_y, relu,
                            f"cudaError_t {err}")
     int8_gemm_requant.launches += 1
     return q, f
+
+
+def _emitted(q, f, emit_q: bool, emit_f: bool):
+    """A custom op's ``(q, f)`` as the entries return them: None for the
+    one not asked for."""
+    return (q if emit_q else None), (f if emit_f else None)
 
 
 def int8_gemm_requant(x_q, w_q, scale, bias, s_y=None, *, relu: bool = True,
@@ -260,16 +294,27 @@ def int8_gemm_requant(x_q, w_q, scale, bias, s_y=None, *, relu: bool = True,
     every ``ceil(N / 16) * 16`` bytes, so that a following call reads them
     in place.
 
-    Each launch of the kernel (by either entry) adds one to
-    ``int8_gemm_requant.launches``.
+    The custom op ``densereg::int8_gemm_requant``: on CUDA tensors it
+    launches the kernel (or raises), on CPU tensors it runs
+    :func:`int8_gemm_requant_reference`. Each launch of the kernel (by
+    either entry) adds one to ``int8_gemm_requant.launches``.
     """
     if x_q.dim() != 2 or w_q.dim() != 2 or x_q.shape[1] != w_q.shape[0]:
         raise ValueError(f"int8_gemm_requant: x {tuple(x_q.shape)} and w "
                          f"{tuple(w_q.shape)} are not (M, K) and (K, N)")
-    if not x_q.is_cuda:
-        return int8_gemm_requant_reference(
-            x_q, w_q, scale, bias, s_y, relu=relu, emit_q=emit_q,
-            emit_f=emit_f, f_dtype=f_dtype)
+    if emit_q:
+        s_y = _as_scale(s_y, x_q.device)
+    impl = _int8_gemm_cuda if _build.eager(x_q) else int8_gemm_requant_op
+    return _emitted(*impl(x_q, w_q, scale, bias, s_y, relu, emit_q, emit_f,
+                          f_dtype), emit_q, emit_f)
+
+
+def _int8_gemm_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
+                    scale: torch.Tensor, bias: torch.Tensor,
+                    s_y: Optional[torch.Tensor], relu: bool, emit_q: bool,
+                    emit_f: bool, f_dtype: torch.dtype
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense entry's CUDA implementation: one launch of the kernel."""
     m, k = x_q.shape
     n = w_q.shape[1]
     kp = _pad16(k)
@@ -284,9 +329,29 @@ def int8_gemm_requant(x_q, w_q, scale, bias, s_y=None, *, relu: bool = True,
         w_q = torch.empty((n, kp), dtype=torch.int8,
                           device=w_q.device)[:, :k].copy_(w_q.t()).t()
     # a matrix is an image of one row of M pixels, convolved 1x1
-    return _launch(x_q, (0, 0, x_q.stride(0)), (1, 1, m, 1, m, kp, 1, 1, 0, 0),
-                   w_q, w_q.stride(1), k, n, scale, bias, s_y, relu, emit_q,
-                   emit_f, f_dtype)
+    return _launch(x_q, (0, 0, x_q.stride(0)),
+                   (1, 1, m, 1, m, kp, 1, 1, 0, 0), w_q, w_q.stride(1), k, n,
+                   scale, bias, s_y, relu, emit_q, emit_f, f_dtype)
+
+
+int8_gemm_requant_op = torch.library.custom_op(
+    "densereg::int8_gemm_requant", _int8_gemm_cuda, mutates_args=(),
+    device_types="cuda")
+
+
+@int8_gemm_requant_op.register_kernel("cpu")
+def _int8_gemm_requant_cpu(x_q, w_q, scale, bias, s_y, relu, emit_q, emit_f,
+                           f_dtype):
+    return _filled(*int8_gemm_requant_reference(
+        x_q, w_q, scale, bias, s_y, relu=relu, emit_q=emit_q, emit_f=emit_f,
+        f_dtype=f_dtype), x_q, f_dtype)
+
+
+@int8_gemm_requant_op.register_fake
+def _int8_gemm_requant_fake(x_q, w_q, scale, bias, s_y, relu, emit_q, emit_f,
+                            f_dtype):
+    return _outputs(x_q, x_q.shape[:1], w_q.shape[1], emit_q, emit_f,
+                    f_dtype)
 
 
 def int8_conv_requant(x_q, w_packed, k: int, stride: int, scale, bias,
@@ -300,20 +365,33 @@ def int8_conv_requant(x_q, w_packed, k: int, stride: int, scale, bias,
     On the card the kernel reads ``x_q`` in place, 16 bytes of a pixel at a
     time: every pixel must start at a multiple of 16 bytes (the layout of
     :func:`quantize` with ``pitch16`` and of the kernel's ``q``). Anything
-    else raises: it is not copied quietly.
+    else raises: it is not copied quietly. Calls the custom op
+    ``densereg::int8_conv_requant`` (CPU: :func:`int8_conv_requant_reference`).
     """
     if x_q.dim() != 4 or w_packed.dim() != 2:
         raise ValueError(f"int8_conv_requant: x {tuple(x_q.shape)} is not "
                          f"NHWC or w {tuple(w_packed.shape)} not packed")
-    b, h, w, c = x_q.shape
-    n, kk = w_packed.shape
+    c = x_q.shape[3]
+    kk = w_packed.shape[1]
     if kk != k * k * _pad16(c):
         raise ValueError(f"int8_conv_requant: w {tuple(w_packed.shape)} is "
                          f"not pack_weight of a {k}x{k}x{c} kernel")
-    if not x_q.is_cuda:
-        return int8_conv_requant_reference(
-            x_q, w_packed, k, stride, scale, bias, s_y, relu=relu,
-            emit_q=emit_q, emit_f=emit_f, f_dtype=f_dtype)
+    if emit_q:
+        s_y = _as_scale(s_y, x_q.device)
+    impl = _int8_conv_cuda if _build.eager(x_q) else int8_conv_requant_op
+    return _emitted(*impl(x_q, w_packed, k, stride, scale, bias, s_y, relu,
+                          emit_q, emit_f, f_dtype), emit_q, emit_f)
+
+
+def _int8_conv_cuda(x_q: torch.Tensor, w_packed: torch.Tensor, k: int,
+                    stride: int, scale: torch.Tensor, bias: torch.Tensor,
+                    s_y: Optional[torch.Tensor], relu: bool, emit_q: bool,
+                    emit_f: bool, f_dtype: torch.dtype
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The implicit-GEMM entry's CUDA implementation: one launch of the
+    kernel."""
+    b, h, w, c = x_q.shape
+    n, kk = w_packed.shape
     _check(x_q, w_packed, n, kk, scale, bias, emit_q, emit_f, f_dtype)
     if (x_q.stride(3) != 1 or x_q.stride(2) < c
             or not _aligned(x_q, *x_q.stride()[:3])):
@@ -327,8 +405,29 @@ def int8_conv_requant(x_q, w_packed, k: int, stride: int, scale, bias,
             same_pads(h, k, stride)[0], same_pads(w, k, stride)[0])
     q, f = _launch(x_q, x_q.stride()[:3], geom, w_packed, w_packed.stride(0),
                    kk, n, scale, bias, s_y, relu, emit_q, emit_f, f_dtype)
-    return tuple(None if t is None else t.reshape(b, oh, ow, n)
+    return tuple(t.reshape(b, oh, ow, n) if t.numel() else t
                  for t in (q, f))
+
+
+int8_conv_requant_op = torch.library.custom_op(
+    "densereg::int8_conv_requant", _int8_conv_cuda, mutates_args=(),
+    device_types="cuda")
+
+
+@int8_conv_requant_op.register_kernel("cpu")
+def _int8_conv_requant_cpu(x_q, w_packed, k, stride, scale, bias, s_y, relu,
+                           emit_q, emit_f, f_dtype):
+    return _filled(*int8_conv_requant_reference(
+        x_q, w_packed, k, stride, scale, bias, s_y, relu=relu, emit_q=emit_q,
+        emit_f=emit_f, f_dtype=f_dtype), x_q, f_dtype)
+
+
+@int8_conv_requant_op.register_fake
+def _int8_conv_requant_fake(x_q, w_packed, k, stride, scale, bias, s_y, relu,
+                            emit_q, emit_f, f_dtype):
+    b, h, w, _ = x_q.shape
+    return _outputs(x_q, (b, -(-h // stride), -(-w // stride)),
+                    w_packed.shape[0], emit_q, emit_f, f_dtype)
 
 
 int8_gemm_requant.launches = 0

@@ -4,9 +4,9 @@ Replaces the TPU kernel
 ``densereg_tpu/ops/meanshift_pallas.py::weighted_mean_shift_pallas``. As in
 the JAX package it is exported but on no serving path: the fused decode
 (``ops.fused_decode``) runs the same stage inside its own kernel (both
-include ``csrc/vote_meanshift.cuh``). On CUDA tensors
-:func:`weighted_mean_shift_cuda` launches the hand-written kernel (or
-raises); on CPU tensors it runs the plain version,
+include ``csrc/vote_meanshift.cuh``). The kernel is the custom op
+``densereg::weighted_mean_shift``: on CUDA tensors it launches the
+hand-written kernel (or raises); on CPU tensors it runs the plain version,
 ``decode.weighted_mean_shift``.
 """
 
@@ -42,12 +42,20 @@ def weighted_mean_shift_cuda(cans, weights, num_it: int = 10,
     ``num_it`` Gaussian mean-shift steps; an all-zero weight keeps the
     grid start.
 
-    Each launch of the kernel adds one to
+    The custom op ``densereg::weighted_mean_shift``: on CUDA tensors it
+    launches the kernel (or raises), on CPU tensors it runs
+    ``decode.weighted_mean_shift``. Each launch of the kernel adds one to
     ``weighted_mean_shift_cuda.launches``.
     """
-    if not cans.is_cuda:
-        return decode.weighted_mean_shift(cans, weights, num_it, band_width,
-                                          grid)
+    impl = (_weighted_mean_shift_cuda if _build.eager(cans)
+            else weighted_mean_shift_op)
+    return impl(cans, weights, num_it, band_width, grid)
+
+
+def _weighted_mean_shift_cuda(cans: torch.Tensor, weights: torch.Tensor,
+                              num_it: int, band_width: float,
+                              grid: int) -> torch.Tensor:
+    """The op's CUDA implementation: one launch of the kernel."""
     b, j, n, three = cans.shape
     if three != 3 or weights.shape != (b, j, n):
         raise ValueError(f"weighted_mean_shift_cuda: cans {tuple(cans.shape)}"
@@ -80,6 +88,22 @@ def weighted_mean_shift_cuda(cans, weights, num_it: int = 10,
                            f"with cudaError_t {err}")
     weighted_mean_shift_cuda.launches += 1
     return out
+
+
+weighted_mean_shift_op = torch.library.custom_op(
+    "densereg::weighted_mean_shift", _weighted_mean_shift_cuda,
+    mutates_args=(), device_types="cuda")
+
+
+@weighted_mean_shift_op.register_kernel("cpu")
+def _weighted_mean_shift_cpu(cans, weights, num_it, band_width, grid):
+    return decode.weighted_mean_shift(cans, weights, num_it, band_width, grid)
+
+
+@weighted_mean_shift_op.register_fake
+def _weighted_mean_shift_fake(cans, weights, num_it, band_width, grid):
+    b, j = cans.shape[:2]
+    return cans.new_empty((b, j, 3), dtype=torch.float32)
 
 
 weighted_mean_shift_cuda.launches = 0

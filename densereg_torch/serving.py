@@ -8,20 +8,31 @@ Mirrors ``densereg_tpu/serving.py``::
 Per dispatch, on the predictor's device: crop from the boxes, center of
 mass, depth normalization, the stacked hourglass (batch norm folded into
 the convolutions by default), the head-grid subsample and the vote decode,
-which on CUDA runs the fused decode kernel. Each dispatch is padded to the
-smallest of ``batch_buckets`` that fits it, so the device sees a fixed set
-of batch shapes. The port runs eagerly.
+the custom op ``densereg::fused_decode`` (the fused decode kernel on CUDA).
+That program is one module, :class:`ServingModule`, which
+``densereg_torch.export`` exports as it stands. Each dispatch is padded to
+the smallest of ``batch_buckets`` that fits it, so the device sees a fixed
+set of batch shapes. The port runs eagerly.
+
+With a ``mesh`` (``parallel.make_mesh``) a dispatch is split over the
+mesh's devices. Under a process group every process, one card each,
+calls the predictor with the same request, runs its rows, and the joints
+are gathered (``all_gather`` over the group), so that every process
+returns all of them; a mesh of one process splits its rows over its local
+cards, each with its own replica of the module.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
-from densereg_torch import decode as decode_mod
 from densereg_torch.config import CameraConfig, EvalConfig, NetConfig
+from densereg_torch.decode import decode_poses
 from densereg_torch.models import fold_batch_norm, from_flax, to_flax
 from densereg_torch.models.bridge import is_folded, is_quantized
 from densereg_torch.models.quantize import calibrate, quantize_weights
@@ -31,6 +42,42 @@ from densereg_torch.preprocess import (
     method2_resize,
     norm_dm,
 )
+
+
+class ServingModule(nn.Module):
+    """The serving program of one device: raw frames ``(b, H, W, 1)``
+    (float32 or uint16 mm) and boxes ``(b, 5)`` in, xyz ``(b, 3j)`` mm out.
+    ``net`` is the eval-form ``DenseRegNet``, ``cam`` the sensor's
+    ``(fx, fy, cx, cy, w, h)`` as a float32 tensor (a buffer, so that an
+    exported program carries it)."""
+
+    def __init__(self, net: nn.Module, cam: torch.Tensor,
+                 ecfg: EvalConfig):
+        super().__init__()
+        self.net = net
+        self.register_buffer("cam", cam)
+        self.ecfg = ecfg
+
+    def normed(self, frames: torch.Tensor, bbxs: torch.Tensor):
+        """Frames and boxes -> the net's input (normalized depth crops),
+        ``cfgs`` and ``coms``."""
+        in_h, in_w = self.net.cfg.input_hw
+        dms, cfgs = crop_from_bbx(frames, bbxs, self.cam, in_h, in_w)
+        coms = center_of_mass(dms, cfgs)
+        return norm_dm(dms, coms), cfgs, coms
+
+    def heads(self, frames: torch.Tensor, bbxs: torch.Tensor):
+        """The decode's inputs: the last stack's ``hm, hm3, um`` (NHWC
+        views), the head-grid depth, ``cfgs`` and ``coms``."""
+        out_h, out_w = self.net.cfg.output_hw
+        normed, cfgs, coms = self.normed(frames, bbxs)
+        outs = self.net(normed)
+        tiny = method2_resize(normed, out_h, out_w)
+        return (outs["hm"][-1], outs["hm3"][-1], outs["um"][-1], tiny, cfgs,
+                coms)
+
+    def forward(self, frames: torch.Tensor, bbxs: torch.Tensor):
+        return decode_poses(*self.heads(frames, bbxs), self.ecfg)["xyz"]
 
 
 class Predictor:
@@ -52,8 +99,10 @@ class Predictor:
     batch scales its activations by its own maxima (dynamic).
     ``compute_dtype`` is then the dtype of the float views between layers.
 
-    Not ported yet, and refused with ``NotImplementedError``: multi-device
-    serving (``mesh``).
+    ``mesh`` (``parallel.make_mesh``) serves on all of the mesh's devices:
+    the predictor then lives on ``mesh.devices`` (``device`` is not read),
+    and every process of the mesh's group must make the same calls (see
+    the module's docstring).
     """
 
     # uint16 integer-mm frames are accepted natively and cast on the device
@@ -64,9 +113,13 @@ class Predictor:
                  fold_bn: bool = True, mesh=None, quantize: bool = False,
                  calibration=None, batch_buckets=None, device="cuda"):
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving (mesh) is not ported to densereg_torch "
-                "yet; serve on one device")
+            from densereg_torch.parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a densereg_torch.parallel "
+                                f"Mesh (make_mesh), got {type(mesh)}")
+            device = mesh.devices[0]
+        self.mesh = mesh
         if (fold_bn or quantize) and not is_folded(variables):
             variables = fold_batch_norm(variables, eps=net_cfg.bn_epsilon)
         if quantize and not is_quantized(variables):
@@ -84,8 +137,10 @@ class Predictor:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.camera = camera
-        self._cam = camera.as_array(device=self.device)
         self.ecfg = ecfg
+        self.module = ServingModule(self.net, camera.as_array(
+            device=self.device), ecfg)
+        self._cam = self.module.cam
         self.max_batch = max_batch
         if quantize and calibration is not None:
             frames, bbxs = calibration
@@ -95,6 +150,11 @@ class Predictor:
             calibrate(self.net, [self._normed(
                 self._to_device(frames),
                 self._to_device(np.asarray(bbxs, np.float32)))[0]])
+        # one replica of the program on each further local card of a mesh
+        # of one process (under a group a process has one card)
+        self._replicas = [self.module] + [
+            copy.deepcopy(self.module).to(d)
+            for d in (mesh.devices[1:] if mesh is not None else ())]
         # max_batch is always a bucket, so every chunk has a home
         if batch_buckets:
             buckets = sorted({int(v) for v in batch_buckets} | {max_batch})
@@ -141,27 +201,23 @@ class Predictor:
     def _normed(self, frames: torch.Tensor, bbxs: torch.Tensor):
         """Device frames and boxes -> the net's input (normalized depth
         crops), ``cfgs`` and ``coms``."""
-        in_h, in_w = self.net_cfg.input_hw
-        dms, cfgs = crop_from_bbx(frames, bbxs, self._cam, in_h, in_w)
-        coms = center_of_mass(dms, cfgs)
-        return norm_dm(dms, coms), cfgs, coms
+        return self.module.normed(frames, bbxs)
 
     @torch.inference_mode()
     def _heads(self, frames: torch.Tensor, bbxs: torch.Tensor):
         """Device frames and boxes -> the decode's inputs: the last stack's
         ``hm, hm3, um`` (NHWC views), the head-grid depth, ``cfgs`` and
         ``coms``."""
-        out_h, out_w = self.net_cfg.output_hw
-        normed, cfgs, coms = self._normed(frames, bbxs)
-        outs = self.net(normed)
-        tiny = method2_resize(normed, out_h, out_w)
-        return (outs["hm"][-1], outs["hm3"][-1], outs["um"][-1], tiny, cfgs,
-                coms)
+        return self.module.heads(frames, bbxs)
 
     @torch.inference_mode()
     def _predict(self, frames: torch.Tensor, bbxs: torch.Tensor):
-        return decode_mod.decode_poses(*self._heads(frames, bbxs),
-                                       self.ecfg)["xyz"]
+        """Device frames and boxes -> xyz on the predictor's device. With a
+        mesh: this process's rows of the request, split again over its
+        devices, then the gather of every process's joints."""
+        if self.mesh is None:
+            return self.module(frames, bbxs)
+        return _predict_on_mesh(self.mesh, self._replicas, frames, bbxs)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -217,3 +273,31 @@ class Predictor:
             pending = (dev, len(chunk))
         out.append(pending[0][:pending[1]].cpu().numpy())
         return out[0] if len(out) == 1 else np.concatenate(out)
+
+
+def _predict_on_mesh(mesh, replicas, frames: torch.Tensor,
+                     bbxs: torch.Tensor) -> torch.Tensor:
+    """Split ``(b, ...)`` rows over the ``mesh.size`` devices of the mesh
+    (padded by repeating the last row to a multiple of it), run each local
+    slice on its replica, and gather the joints of every process onto
+    ``mesh.devices[0]``; returns ``(b, 3j)``."""
+    import torch.distributed as dist
+
+    b = frames.shape[0]
+    per = -(-b // mesh.size)
+    pad = per * mesh.size - b
+    if pad:
+        frames = torch.cat([frames, frames[-1:].expand(pad, *frames.shape[1:])])
+        bbxs = torch.cat([bbxs, bbxs[-1:].expand(pad, *bbxs.shape[1:])])
+    first = mesh.rank * len(mesh.devices) * per
+    outs = []
+    for i, (dev, rep) in enumerate(zip(mesh.devices, replicas)):
+        rows = slice(first + i * per, first + (i + 1) * per)
+        outs.append(rep(frames[rows].to(dev), bbxs[rows].to(dev))
+                    .to(mesh.devices[0]))
+    local = torch.cat(outs)
+    if mesh.group is None:
+        return local[:b]
+    parts = [torch.empty_like(local) for _ in range(mesh.world_size)]
+    dist.all_gather(parts, local.contiguous(), group=mesh.group)
+    return torch.cat(parts)[:b]

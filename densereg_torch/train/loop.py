@@ -39,11 +39,16 @@ from densereg_torch import geometry, targets
 from densereg_torch.config import EvalConfig, NetConfig, TrainConfig, model_desc
 from densereg_torch.data.base import DatasetSpec
 from densereg_torch.data.pipeline import InputPipeline, TestPipeline
-from densereg_torch.eval.loop import evaluate_stream, make_infer_fn
+from densereg_torch.eval.loop import (
+    evaluate_multihost,
+    evaluate_stream,
+    make_infer_fn,
+)
 from densereg_torch.eval.metrics import max_joint_error
 from densereg_torch.eval.visualization import SummaryImageWriter
 from densereg_torch.models import DenseRegNet, from_flax, to_flax
 from densereg_torch.models.bridge import flax_tree
+from densereg_torch.models.layers import sync_batch_renorm
 from densereg_torch.preprocess import norm_dm
 from densereg_torch.train.checkpoint import CheckpointManager, restore_net
 from densereg_torch.train.state import TrainState, create_train_state
@@ -102,7 +107,7 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
           val_spec: Optional[DatasetSpec] = None, restore_step=None,
           max_steps: Optional[int] = None, net_name: str = "um_v1",
           debug_level: int = 1, init_params: Optional[str] = None,
-          log_fn=print, device="cuda") -> TrainState:
+          log_fn=print, mesh=None, device="cuda") -> TrainState:
     """Train on ``spec`` on ``device``; returns the final state.
 
     ``restore_step``: a step to resume from, ``"auto"`` for the latest
@@ -119,9 +124,29 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
     package) saves skeleton PNGs of each validation batch (matplotlib),
     2 also writes debug images of the training batch into the event file
     every ``summary_every`` steps.
+
+    ``mesh`` (``parallel.make_mesh``, one device a process) trains data
+    parallel: every process of its group runs this same loop on its card
+    and its share of each batch (``InputPipeline``'s multi-process form),
+    the renorm moments are the global batch's and the gradients are
+    summed over the ranks before the clip (``train_step``'s ``group``), so
+    every rank holds the same state after each step. The files (the
+    checkpoints, ``metrics.jsonl``, the event file, validation and
+    ``keep_best``) are rank 0's alone; the other ranks keep their own text
+    log, ``training_log.p<rank>.txt``. SIGTERM must reach every process,
+    as in the JAX package: a rank that stops alone leaves the others
+    waiting in the next all-reduce.
     """
     if val_spec is not None and val_spec.jnt_num != spec.jnt_num:
         raise ValueError("validation dataset must share the joint count")
+    group, rank = None, 0
+    if mesh is not None:
+        if len(mesh.devices) != 1:
+            raise NotImplementedError(
+                "train(mesh=...): one device a process (start one process "
+                f"per card), got {len(mesh.devices)} local devices")
+        device, group, rank = mesh.devices[0], mesh.group, mesh.rank
+    lead = rank == 0
     device = torch.device(device)
     steps_per_epoch = spec.approximate_num / (tcfg.batch_size * tcfg.sub_batch)
     if max_steps is None:
@@ -137,8 +162,10 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
                              max_to_keep=tcfg.keep_checkpoints)
 
     state = create_train_state(net_cfg, tcfg, steps_per_epoch, device=device)
+    if group is not None:
+        sync_batch_renorm(state.net, group)
     generator = torch.Generator(device=device)
-    generator.manual_seed(tcfg.seed)
+    generator.manual_seed(tcfg.seed + 104729 * rank)
     generators = {"train": generator}
     if restore_step == "auto":
         restore_step = ckpt.latest_step()
@@ -160,17 +187,20 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
         log_fn(f"[train] warm-started params from {init_params} "
                f"(fresh optimizer, step 0)")
 
-    log = TrainLogWriter(train_dir)
-    metrics_log = MetricLogger(os.path.join(train_dir, "metrics.jsonl"))
+    log = TrainLogWriter(train_dir, "training_log.txt" if lead
+                         else f"training_log.p{rank}.txt")
+    metrics_log = MetricLogger(os.path.join(train_dir, "metrics.jsonl")
+                               if lead else os.devnull)
     summary_dir = os.path.join(train_dir, "summary")
-    events = EventWriter(summary_dir)
+    events = EventWriter(summary_dir) if lead else None
     pipeline = InputPipeline(spec, tcfg.batch_size, tcfg.sub_batch,
                              net_cfg.input_hw, seed=tcfg.seed,
                              num_workers=tcfg.num_workers, skip=state.step,
                              host_preprocess=tcfg.host_preprocess,
-                             wire_dtype=tcfg.wire_dtype, device=device)
+                             wire_dtype=tcfg.wire_dtype, mesh=mesh,
+                             device=device)
     infer_fn = val_iter = best_tracker = image_writer = None
-    if val_spec is not None:
+    if val_spec is not None and lead:
         infer_fn = make_infer_fn(net_cfg, EvalConfig(), device=device)
         val_iter = rotating_batches(TestPipeline(val_spec, 3,
                                                  net_cfg.input_hw,
@@ -184,9 +214,10 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
                 os.path.join(train_dir, "ckpt_best"),
                 os.path.join(train_dir, "best.json"),
                 n_frames=tcfg.best_score_frames, device=device)
-    elif tcfg.keep_best:
+    elif tcfg.keep_best and lead:
         log_fn("[train] keep_best ignored: no validation split to rank by")
-    debug_fn = _make_debug_fn(net_cfg) if debug_level >= 2 else None
+    debug_fn = (_make_debug_fn(net_cfg) if debug_level >= 2 and lead
+                else None)
 
     schedule = state.optimizer.schedule
     log_fn(f"[train] lr decays per "
@@ -248,10 +279,10 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
                     or step + 1 == max_steps)
             with timer:     # the feed included: it runs on the same stream
                 batch = next(data_iter)
-                histograms = (tcfg.histogram_every > 0
+                histograms = (lead and tcfg.histogram_every > 0
                               and step % tcfg.histogram_every == 0)
                 metrics = train_step(state, batch, net_cfg, tcfg, generator,
-                                     with_grads=histograms)
+                                     with_grads=histograms, group=group)
                 grads = metrics.pop("grads", None)
                 _flush_guard()
                 if sync:
@@ -269,7 +300,8 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
                 scalars = {k: float(metrics[k]) for k in sorted(metrics)}
                 metrics_log.log(step, learning_rate=lr,
                                 sec_per_batch=timer.last, **scalars)
-                events.add_scalars(dict(scalars, learning_rate=lr), step)
+                if events is not None:
+                    events.add_scalars(dict(scalars, learning_rate=lr), step)
                 if debug_fn is not None:
                     _train_debug_images(debug_fn, state, batch, events, step)
             if histograms:
@@ -284,7 +316,8 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
             if (step % tcfg.checkpoint_every == 0 or step + 1 == max_steps
                     or preempted["flag"]):
                 _flush_guard()
-                ckpt.save(state, generators=generators)
+                if lead:
+                    ckpt.save(state, generators=generators)
             if preempted["flag"]:
                 log.write(f"[train] SIGTERM: checkpointed step {state.step} "
                           f"and stopping")
@@ -297,11 +330,13 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
         raise
     except Exception:
         # keep the live state, so that an auto-resume loses at most a step
-        try:
-            ckpt.save(state, generators=generators)
-            log.write(f"[train] emergency checkpoint at step {state.step}")
-        except Exception as exc:
-            log_fn(f"[train] emergency checkpoint failed: {exc!r}")
+        if lead:
+            try:
+                ckpt.save(state, generators=generators)
+                log.write(f"[train] emergency checkpoint at step "
+                          f"{state.step}")
+            except Exception as exc:
+                log_fn(f"[train] emergency checkpoint failed: {exc!r}")
         raise
     finally:
         if old_handler is not None:
@@ -311,14 +346,15 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
         pipeline.close()
         log.close()
         metrics_log.close()
-        events.close()
+        if events is not None:
+            events.close()
 
 
 def test(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
          ecfg: EvalConfig = EvalConfig(), selected_step: Optional[int] = -1,
          net_name: str = "um_v1", train_spec: Optional[DatasetSpec] = None,
          use_ema: bool = False, use_best: bool = False,
-         init_params: Optional[str] = None, log_fn=print,
+         init_params: Optional[str] = None, log_fn=print, mesh=None,
          device="cuda") -> dict:
     """The test driver (reference model/test_model.py): restore weights,
     stream ``spec``'s frames in batches of ``ecfg.batch_size`` through the
@@ -333,10 +369,18 @@ def test(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
     from ``ckpt_best`` with ``use_best``, its EMA weights with ``use_ema``;
     or, with ``init_params``, a converted payload
     (``densereg_torch.convert``), which cannot combine with ``use_ema`` or
-    ``use_best``. The evaluation runs in one process; the JAX package's
-    multi-process evaluation (``evaluate_multihost``) is not ported yet
-    (the multi-GPU item of the port's queue).
+    ``use_best``.
+
+    With a ``mesh`` (``parallel.make_mesh``) of more than one process the
+    evaluation is ``eval.loop.evaluate_multihost``'s: each process decodes
+    its own shards on ``mesh.devices[0]`` and rank 0 merges the parts into
+    ``{subset}-step{step}-result.txt`` and ``-result_error.txt``, a name
+    every process derives from the restored checkpoint's step (0 for a
+    converted payload), not from its clock. A mesh of one process runs on
+    its first device as without one.
     """
+    if mesh is not None:
+        device = mesh.devices[0]
     device = torch.device(device)
     name_spec = train_spec if train_spec is not None else spec
     name = model_desc(name_spec.name,
@@ -352,6 +396,7 @@ def test(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
         net = DenseRegNet(dataclasses.replace(net_cfg, fold_bn=False,
                                               quantize=False))
         _load_converted_into(net, load_converted(init_params), init_params)
+        step = 0
         os.makedirs(train_dir, exist_ok=True)
         log_fn(f"[test] evaluating converted weights from {init_params}")
     else:
@@ -359,12 +404,27 @@ def test(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
                           use_best)
         log_fn(f"[test] restored from {train_dir}"
                + (" (EMA weights)" if use_ema else ""))
+        if selected_step is None or selected_step == -1:
+            step = CheckpointManager(os.path.join(
+                train_dir, "ckpt_best" if use_best else "ckpt")).latest_step()
+        else:
+            step = int(selected_step)
     net = net.to(device).eval()
     if device.type == "cuda" and net_cfg.compute_dtype == "float32":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
     infer_fn = make_infer_fn(net_cfg, ecfg, device=device)
+    if mesh is not None and mesh.world_size > 1:
+        base = os.path.join(train_dir, f"{spec.subset}-step{step}")
+        report = evaluate_multihost(
+            infer_fn, net, spec, ecfg.batch_size, net_cfg.input_hw,
+            f"{base}-result.txt", f"{base}-result_error.txt", log_fn=log_fn,
+            host_preprocess=ecfg.host_preprocess, wire_dtype=ecfg.wire_dtype,
+            mesh=mesh)
+        log_fn(f"[test] {report['num_frames']} frames @ "
+               f"{report['fps']:.1f} fps; {report['percentages']}")
+        return report
     pipe = TestPipeline(spec, ecfg.batch_size, net_cfg.input_hw,
                         host_preprocess=ecfg.host_preprocess,
                         wire_dtype=ecfg.wire_dtype, device=device)

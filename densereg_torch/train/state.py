@@ -183,7 +183,7 @@ def remat_forward(net: DenseRegNet, normed: torch.Tensor, r_max, d_max,
 def loss_fn(net: DenseRegNet, batch: Dict[str, torch.Tensor],
             net_cfg: NetConfig, tcfg: TrainConfig, renorm_t,
             generator: Optional[torch.Generator] = None,
-            mark: Optional[Callable[[str], None]] = None):
+            mark: Optional[Callable[[str], None]] = None, group=None):
     """Total training loss of one micro-batch.
 
     ``batch``: ``dm (b, H, W, 1)`` raw mm, ``pose (b, 3j)``, ``cfg (b, 6)``,
@@ -192,7 +192,10 @@ def loss_fn(net: DenseRegNet, batch: Dict[str, torch.Tensor],
     are ``sum(x^2)/2`` (``sum|x|`` for ``l1``) over every stack's heads,
     summed, never averaged; the weight decay is part of every micro loss.
     ``mark``, when given, is called with ``"augment_targets"`` once the
-    targets are made. Returns ``(total, metrics)``, metrics detached.
+    targets are made. With ``group`` (data parallelism) the batch is this
+    rank's slice and the weight decay is divided by the group's size, so
+    that the ranks' losses sum to the global batch's, as the JAX loss does
+    under ``axis_name``. Returns ``(total, metrics)``, metrics detached.
     """
     dms, poses = batch["dm"], batch["pose"]
     cfgs, coms = batch["cfg"], batch["com"]
@@ -215,6 +218,10 @@ def loss_fn(net: DenseRegNet, batch: Dict[str, torch.Tensor],
     hm3_loss = sum(data_loss(est - gt["hm3"]) for est in outs["hm3"])
     um_loss = sum(data_loss(est - gt["um"]) for est in outs["um"])
     reg_loss = weight_decay_loss(net, tcfg.weight_decay)
+    if group is not None:
+        import torch.distributed as dist
+
+        reg_loss = reg_loss / float(dist.get_world_size(group))
     total = hm_loss + hm3_loss + um_loss + reg_loss
     metrics = {"loss": total, "hm_loss": hm_loss, "hm3_loss": hm3_loss,
                "um_loss": um_loss, "reg_loss": reg_loss}

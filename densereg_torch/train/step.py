@@ -26,11 +26,23 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def all_reduce_sum_(tensors, group) -> None:
+    """Sum each tensor over the ranks of ``group``, in place, in one flat
+    all-reduce (one bucket: the gradient of this ~2M-parameter net is a
+    few MB)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    torch._foreach_copy_(tensors, [v.view_as(t) for v, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)])
+
+
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                net_cfg: NetConfig, tcfg: TrainConfig,
                generator: Optional[torch.Generator] = None,
                with_grads: bool = False,
-               mark: Optional[Callable[[str], None]] = None):
+               mark: Optional[Callable[[str], None]] = None, group=None):
     """One optimizer step, in place on ``state``.
 
     Args:
@@ -42,6 +54,13 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
       mark: called with a phase name as each phase's work is issued:
         ``"augment_targets"`` and ``"forward_backward"`` once a micro step,
         ``"optimizer"`` after the update.
+      group: a ``torch.distributed`` process group for data parallelism
+        (``densereg_tpu/train/step.py``'s explicit path): ``batch`` is this
+        rank's slice of the global batch, the net's renorm is synchronized
+        over the group (``models.sync_batch_renorm``), and the accumulated
+        gradients and the metrics are summed over the ranks in one flat
+        all-reduce each, before the division by ``sub_batch`` and the
+        clip, so that every rank takes the global batch's step.
     Returns:
       metrics: 0-d tensors on the device, the losses averaged over the
       micro steps, plus ``grad_norm`` (of the averaged gradient, before the
@@ -54,7 +73,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     t = state.renorm_t
     for i in range(sub):
         mb = {k: v[i] for k, v in batch.items()}
-        loss, metrics = loss_fn(net, mb, net_cfg, tcfg, t, generator, mark)
+        loss, metrics = loss_fn(net, mb, net_cfg, tcfg, t, generator, mark,
+                                group)
         loss.backward()
         if mark is not None:
             mark("forward_backward")
@@ -64,6 +84,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     params = [p for _, p in named]
     with torch.no_grad():
         grads = [p.grad for p in params]
+        if group is not None:
+            all_reduce_sum_(grads, group)
         torch._foreach_div_(grads, float(sub))
         grad_norm = global_norm(grads)
         kept = ({k: p.grad.clone() for k, p in named} if with_grads
@@ -79,8 +101,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         mark("optimizer")
     state.step += 1
     state.renorm_t = t
-    out = {k: torch.stack([m[k] for m in per_micro]).mean()
-           for k in per_micro[0]}
+    names = list(per_micro[0])
+    stacked = torch.stack([torch.stack([m[k] for m in per_micro])
+                           for k in names])                  # (keys, sub)
+    if group is not None:
+        all_reduce_sum_([stacked], group)
+    out = {k: stacked[i].mean() for i, k in enumerate(names)}
     out["grad_norm"] = grad_norm
     out["param_norm"] = param_norm
     if kept is not None:

@@ -608,3 +608,39 @@ def test_daemon_on_card(cuda, tmp_path, monkeypatch):
                             n_calib=8)
     assert launches["fused_decode"] >= 2 * 256 // 32
     assert launches["int8_gemm_requant"] > 0
+
+
+@pytest.mark.cuda
+def test_export_on_card(cuda, tmp_path, monkeypatch):
+    """Float32, bfloat16 and calibrated int8 artifacts exported on the card
+    at a small size, loaded and held against the live predictors; K1 and K3
+    launched from inside the loaded programs (counters and the profiler's
+    kernel names); a Server on the int8 artifact. Every check of
+    ``chip_smoke.phase_export`` raises if off."""
+    from chip_smoke import phase_export
+    from densereg_torch import NetConfig
+    from densereg_torch.models import init_variables
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = NetConfig(num_stack=2, num_fea=16, num_joint=16, input_hw=(32, 32))
+    launches = phase_export(init_variables(cfg, seed=4), cfg, cuda,
+                            str(tmp_path), n_frames=64, max_batch=32,
+                            n_calib=8)
+    assert launches["fused_decode"] > 0 and launches["int8_gemm_requant"] > 0
+
+
+@pytest.mark.cuda
+def test_multigpu_on_card(cuda, tmp_path):
+    """A one-rank NCCL group: the synchronized step against the plain step
+    and Predictor(mesh=...) against Predictor, at a small size
+    (``chip_smoke.phase_multigpu``)."""
+    from chip_smoke import phase_multigpu
+    from densereg_torch import NetConfig
+    from densereg_torch.models import init_variables
+
+    cfg = NetConfig(num_stack=2, num_fea=16, num_joint=16, input_hw=(32, 32))
+    launches = phase_multigpu(init_variables(cfg, seed=4), cfg,
+                              str(tmp_path), str(tmp_path / "train"),
+                              n_frames=64, max_batch=32, n_calib=8)
+    assert launches["fused_decode"] == 4 and launches["int8_gemm_requant"] > 0

@@ -53,7 +53,8 @@ def test_plain_decode_matches_jax(kind, j, in_hw):
     scene = _make(kind, j, in_hw, seed=7 * j + in_hw)
     want = jdecode.decode_poses(*(jnp.asarray(a) for a in scene),
                                 JEvalConfig())
-    got = decode.decode_poses(*(torch.from_numpy(a) for a in scene))
+    got = decode.decode_poses(*(torch.from_numpy(a) for a in scene),
+                              candidates=True)
 
     assert got["normed"].shape == (scene[0].shape[0], j, 3)
     assert torch.isfinite(got["normed"]).all()
@@ -108,7 +109,8 @@ def test_plain_decode_matches_jax_on_served_layouts(hw):
     scene = decode_scene(np.random.default_rng(hw), 4, hw, hw, 16)
     want = jdecode.decode_poses(*(jnp.asarray(a) for a in scene),
                                 JEvalConfig())
-    got = {layout: decode.decode_poses(*as_served(scene, "cpu", layout))
+    got = {layout: decode.decode_poses(*as_served(scene, "cpu", layout),
+                                      candidates=True)
            for layout in ("nhwc", "nchw", "mixed")}
     assert got["nhwc"]["xyz"].shape == (4, 48)
     for key in ("normed", "candidates", "weights"):
@@ -131,7 +133,8 @@ def test_plain_decode_matches_jax_on_edge_heads():
     scene = decode_edge_scene(np.random.default_rng(5), 8, 32, 32, 16)
     want = jdecode.decode_poses(*(jnp.asarray(a) for a in scene),
                                 JEvalConfig())
-    got = decode.decode_poses(*(torch.from_numpy(a) for a in scene))
+    got = decode.decode_poses(*(torch.from_numpy(a) for a in scene),
+                              candidates=True)
     assert torch.isnan(got["weights"][3, 0, 0]) and torch.isinf(
         got["weights"][4, 1, 0])
     assert (got["weights"][1] <= 0).all() and (got["weights"][0] == 0).all()

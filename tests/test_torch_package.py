@@ -84,6 +84,24 @@ def test_tooling_and_daemon_modules_are_checked(name):
     assert (PKG / name).is_file()
 
 
+@pytest.mark.parametrize("name", [
+    "export.py", "parallel/__init__.py", "parallel/mesh.py",
+    "parallel/distributed.py", "utils/device.py"])
+def test_export_and_parallel_modules_are_checked(name):
+    """The export and multi-GPU modules exist where the import checks
+    look; the device shim picks a card unless asked for the CPU."""
+    import inspect
+
+    assert (PKG / name).is_file()
+    from densereg_torch.parallel import make_mesh
+    from densereg_torch.utils.device import default_device, visible_devices
+
+    assert inspect.signature(default_device).parameters[
+        "platform"].default == "cuda"
+    assert visible_devices("cpu") == [torch.device("cpu")]
+    assert make_mesh(devices=["cpu"]).devices == (torch.device("cpu"),)
+
+
 def _top_level_roots(path: pathlib.Path):
     for node in ast.parse(path.read_text(), str(path)).body:
         if isinstance(node, ast.Import):

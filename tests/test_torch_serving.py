@@ -140,8 +140,9 @@ def test_buckets_and_unported_options(setup, tmp_path):
     with pytest.raises(ValueError, match="batch_buckets"):
         Predictor(variables, NetConfig(**SHAPE), ICVL, max_batch=4,
                   batch_buckets=(6,), device="cpu")
-    # int8 serving is ported (tests/test_torch_int8.py); mesh is not
-    with pytest.raises(NotImplementedError):
+    # int8 serving is ported (tests/test_torch_int8.py), and so is mesh
+    # (tests/test_torch_parallel.py): a mesh must be a parallel.Mesh
+    with pytest.raises(TypeError, match="make_mesh"):
         Predictor(variables, NetConfig(**SHAPE), ICVL, device="cpu",
                   mesh=object())
     # calibration without quantize is ignored, as in the JAX package

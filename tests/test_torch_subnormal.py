@@ -70,7 +70,8 @@ def _first_step_weights(cans, weights):
 def test_scene_reaches_subnormal_weights(scene):
     """The scene does what it is for: many joints' first-step weights are
     all subnormal (the estimate must stay), more are partly so."""
-    out = decode.decode_poses(*(torch.from_numpy(a) for a in scene))
+    out = decode.decode_poses(*(torch.from_numpy(a) for a in scene),
+                              candidates=True)
     s = _first_step_weights(out["candidates"], out["weights"])
     sub = (s > 0) & (s < FLT_MIN)
     assert int(sub.all(-1).sum()) >= 20
@@ -80,7 +81,8 @@ def test_scene_reaches_subnormal_weights(scene):
 def test_weighted_mean_shift_matches_jax_on_underflowing_weights(scene):
     """The mean shift alone, on the scene's candidates and weights and on
     the vote's edge cases, against the JAX package's (jnp)."""
-    out = decode.decode_poses(*(torch.from_numpy(a) for a in scene))
+    out = decode.decode_poses(*(torch.from_numpy(a) for a in scene),
+                              candidates=True)
     cases = {"scene": (out["candidates"].numpy(), out["weights"].numpy()),
              **vote_edge_cases()}
     for name, (cans, w) in cases.items():
@@ -100,7 +102,7 @@ def test_decode_poses_matches_jax_on_subnormal_scene(scene):
     args = [torch.from_numpy(a) for a in scene]
     want = jdecode.decode_poses(*(jnp.asarray(a) for a in scene),
                                 JEvalConfig())
-    got = decode.decode_poses(*args)
+    got = decode.decode_poses(*args, candidates=True)
     np.testing.assert_allclose(got["normed"].numpy(),
                                np.asarray(want["normed"]), atol=TOL, rtol=0)
     np.testing.assert_allclose(ops.fused_decode_reference(*args).numpy(),
