@@ -114,10 +114,24 @@ Phases, each printed as one JSON line:
    parameter gaps), ``Predictor(mesh=...)`` against ``Predictor`` in
    float32 and calibrated int8.
 
+14. ``cli``, the command line (``python -m densereg_torch.cli.main``) at
+   the same widths, on counts of its own: ``convert`` of the synthetic
+   dataset; ``train`` with the defaults (40 x 5, float32) for 6 steps with
+   ``keep_best``; ``test`` on its checkpoint (K1 once a batch) and ``test
+   --init_params`` on phase 8's payload, whose result lines must equal
+   phase 8's ``test()``; ``export --platforms cuda``, then ``predict`` on
+   64 uint16 PNGs through the checkpoint and through ``--artifact``
+   (within 1e-3 mm of each other and of a direct ``Predictor``) and with
+   ``--quantize`` (K3 once a convolution of each forward); ``serve`` in a
+   child process, answered by a ``Client`` and stopped by SIGTERM; ``test``
+   in a child process through a one-rank NCCL group by the command line's
+   flags, whose result file must equal the in-process one.
+
 Then a ``kernels`` line (``train_launches``, ``eval_launches``,
 ``variants_launches``, ``tooling_launches``, ``daemon_launches``,
-``export_launches``, ``multigpu_launches``: each kernel's launches in
-phases 7 to 13; the depthwise kernel's ``launches`` are phase 9's), the card's ``nvidia-smi`` name and power limit, and
+``export_launches``, ``multigpu_launches``, ``cli_launches``: each
+kernel's launches in phases 7 to 14; the depthwise kernel's ``launches``
+are phase 9's), the card's ``nvidia-smi`` name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or when any phase fails, it exits non-zero and prints no result.
 """
@@ -3002,6 +3016,336 @@ def phase_multigpu(variables, net_cfg: NetConfig, root: str, train_root: str,
         dist.destroy_process_group()
 
 
+# --------------------------------------------------------------------------
+# the command line
+# --------------------------------------------------------------------------
+
+# runs the port's command line as ``python -m densereg_torch.cli.main``
+# does, and prints the kernels' launches of the process when it exits
+COUNTED_CLI = (
+    "import atexit, json, runpy, sys\n"
+    "from chip_smoke import read_counts\n"
+    "atexit.register(lambda: print('[cli-launches] '"
+    " + json.dumps(read_counts()), flush=True))\n"
+    "sys.argv[0] = 'densereg_torch.cli.main'\n"
+    "runpy.run_module('densereg_torch.cli.main', run_name='__main__',"
+    " alter_sys=True)\n")
+
+
+def write_png16(path: str, depth: np.ndarray) -> None:
+    """``depth`` (h, w) uint16 as a 16-bit grayscale PNG (rows unfiltered),
+    written with the standard library alone."""
+    import struct
+    import zlib
+
+    h, w = depth.shape
+    rows = np.zeros((h, 1 + 2 * w), np.uint8)
+    rows[:, 1:] = np.ascontiguousarray(depth, ">u2").view(np.uint8)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0,
+                                             0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
+
+
+def cli_subprocess(argv, timeout: float = 600.0, until=None):
+    """``python -m densereg_torch.cli.main argv`` in a child process (with
+    ``COUNTED_CLI``). With ``until`` the child is returned running as soon
+    as a line of its output starts with ``until``, with the lines so far;
+    otherwise its exit code, its output and its kernels' launches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-c", COUNTED_CLI, *argv],
+                            cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    if until is not None:
+        lines, t0 = [], time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if line.startswith(until):
+                return proc, lines
+        proc.kill()
+        raise RuntimeError(f"cli {argv[0]}: no '{until}' line: "
+                           f"{''.join(lines)[-3000:]}")
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    return proc.returncode, out, cli_launches_of(out)
+
+
+def cli_launches_of(out: str) -> dict:
+    lines = [line for line in out.splitlines()
+             if line.startswith("[cli-launches] ")]
+    check(len(lines) == 1, f"cli child printed no launch counts: "
+                           f"{out[-3000:]}")
+    return json.loads(lines[0][len("[cli-launches] "):])
+
+
+def nonzero_counts(counts: dict) -> dict:
+    """``read_counts``' form without its zeros, the staging paths flat."""
+    out = {k: v for k, v in counts.items() if not isinstance(v, dict) and v}
+    out.update({f"fused_decode_{p}": n for p, n in
+                counts["fused_decode_by_path"].items() if n})
+    return out
+
+
+def phase_cli(variables, net_cfg: NetConfig, device, root: str,
+              eval_root=None, n_frames: int = 64):
+    """The command line (``python -m densereg_torch.cli.main``) at
+    ``net_cfg``'s widths, on counts of its own: ``convert`` of the
+    synthetic dataset; ``train`` with the defaults (40 x 5) in float32 for
+    6 steps with ``keep_best``; ``test`` on its checkpoint and ``test
+    --init_params`` on the payload of ``eval_root`` (phase 8's; without it,
+    a payload of ``variables`` and the phase's own data), whose result
+    lines must equal ``train.loop.test``'s on the same payload;
+    ``export --platforms cuda`` (float32), then ``predict`` on ``n_frames``
+    uint16 PNGs through the checkpoint, through ``--artifact`` and with
+    ``--quantize`` (K3 once a convolution of each forward); ``serve`` in a
+    child process answered by a ``Client``, then SIGTERM; ``test`` in a
+    child process through a one-rank NCCL group by the command line's
+    flags. Every command's exit code and seconds, the checks' numbers and
+    the kernels' launches by command go into one ``cli`` line. Returns the
+    launches of all commands."""
+    import signal
+    import socket as socket_mod
+
+    from densereg_torch.cli.main import main as cli_main
+    from densereg_torch.data.png16 import read_depth_png
+
+    t0 = time.perf_counter()
+    device = torch.device(device).type
+    cfg = dataclasses.replace(net_cfg, compute_dtype="float32")
+    data = os.path.join(root, "data")
+    base = os.path.join(root, "cache")
+    shape = ["--num_stack", str(cfg.num_stack), "--num_fea",
+             str(cfg.num_fea), "--kernel_size", str(cfg.kernel_size),
+             "--input_size", str(cfg.input_hw[0])]
+    common = ["--dataset", "synthetic", "--data_dir", data, *shape,
+              "--compute_dtype", "float32", "--base_dir", base,
+              "--device", device]
+    run_dir = os.path.join(base, model_desc("synthetic", "training", cfg,
+                                            True))
+    commands, by_command, acc = {}, {}, {}
+
+    def run(name, argv):
+        """One command in this process, on counts of its own."""
+        counts = {}
+        t1 = time.perf_counter()
+        with counted(counts):
+            code = cli_main(argv)
+        torch.cuda.synchronize()
+        commands[name] = {"exit": code, "seconds": time.perf_counter() - t1}
+        by_command[name] = counts
+        add_counts(acc, counts)
+        check(code == 0, f"cli {name}: exit {code}")
+        return commands[name]
+
+    def results(directory, before=()):
+        new = sorted(set(glob.glob(os.path.join(
+            directory, "testing-*-result.txt"))) - set(before))
+        check(len(new) == 1, f"cli: result files {new}")
+        return new[0], read_result_file(new[0])
+
+    for subset in ("training", "testing"):
+        run(f"convert_{subset}", ["convert", "--dataset", "synthetic",
+                                  "--subset", subset, "--data_dir", data])
+    test_spec = synthetic.make_spec("testing", directory=data)
+    run("train", ["train", *common, "--max_steps", "6", "--keep_best",
+                  "--debug_level", "0"])
+    check(os.path.isfile(os.path.join(run_dir, "ckpt", "ckpt_6.pt"))
+          and os.path.isfile(os.path.join(run_dir, "best.json")),
+          f"cli train: {os.listdir(run_dir)}")
+    row = run("test", ["test", *common])
+    row["frames_per_s"] = test_spec.exact_num / row["seconds"]
+    res_path, (names, xyz) = results(run_dir)
+    batches = -(-test_spec.exact_num // EvalConfig().batch_size)
+
+    # test --init_params against train.loop.test on the same payload
+    if eval_root is not None:
+        payload = os.path.join(eval_root, "params.msgpack")
+        ref_data = os.path.join(eval_root, "data")
+        (ref_path,) = glob.glob(os.path.join(
+            eval_root, "card", "*", "testing-*-result.txt"))
+    else:
+        payload = os.path.join(root, "params.msgpack")
+        save_converted({**variables, "renorm_t": 0.0}, payload)
+        ref_data = data
+        run_test(test_spec, cfg, os.path.join(root, "ref"), device,
+                 init_params=payload)
+        (ref_path,) = glob.glob(os.path.join(root, "ref", "*",
+                                             "testing-*-result.txt"))
+    ip_base = os.path.join(root, "init_params")
+    run("test_init_params",
+        ["test", "--dataset", "synthetic", "--data_dir", ref_data, *shape,
+         "--compute_dtype", "float32", "--base_dir", ip_base, "--device",
+         device, "--init_params", payload])
+    (ip_path,) = glob.glob(os.path.join(ip_base, "*",
+                                        "testing-*-result.txt"))
+    with open(ip_path) as f:
+        ip_lines = f.read().splitlines()
+    with open(ref_path) as f:
+        ref_lines = f.read().splitlines()
+    init_params_equal = ip_lines == ref_lines[:len(ip_lines)]
+
+    # export, then predict through the checkpoint, the artifact and int8
+    art = os.path.join(root, "m.drexpt")
+    run("export", ["export", *common, "--platforms", device, "--out", art])
+    frames, bbxs = hand_frames(np.random.default_rng(SEED + 23), n_frames)
+    img_dir = os.path.join(root, "imgs")
+    os.makedirs(img_dir)
+    for i, frame in enumerate(frames):
+        write_png16(os.path.join(img_dir, f"frame_{i:03d}.png"), frame)
+    read_back = np.stack([read_depth_png(os.path.join(
+        img_dir, f"frame_{i:03d}.png")) for i in range(n_frames)])
+    check(np.array_equal(read_back, frames), "cli: the PNGs read back off")
+    outs = {}
+    for name, extra in (("predict", []), ("predict_artifact",
+                                          ["--artifact", art]),
+                        ("predict_quantize", ["--quantize"])):
+        outs[name] = os.path.join(root, f"{name}.txt")
+        row = run(name, ["predict", *common, "--images", img_dir,
+                         "--out", outs[name], *extra])
+        row["frames_per_s"] = n_frames / row["seconds"]
+    got = {k: read_result_file(v) for k, v in outs.items()}
+    want_names = [f"frame_{i:03d}.png" for i in range(n_frames)]
+    max_batch = TrainConfig().batch_size
+    direct = Predictor.from_checkpoint(run_dir, cfg, synthetic.CFG,
+                                       max_batch=max_batch, device=device)
+    full = np.tile(np.asarray([0, 0, 240, 320, 500.0], np.float32),
+                   (n_frames, 1))
+    want = direct(frames, full)
+    gaps = {"checkpoint_vs_artifact_mm": float(np.abs(
+                got["predict"][1] - got["predict_artifact"][1]).max()),
+            "checkpoint_vs_direct_mm": float(np.abs(
+                got["predict"][1] - want).max()),
+            "artifact_vs_direct_mm": float(np.abs(
+                got["predict_artifact"][1] - want).max()),
+            "quantize_vs_float_mm": float(np.abs(
+                got["predict_quantize"][1] - want).max())}
+
+    def free_port() -> int:
+        with socket_mod.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    # the daemon in a child process, on TCP (a Unix socket's path may be
+    # too long under a deep temporary directory)
+    sock = f"127.0.0.1:{free_port()}"
+    t1 = time.perf_counter()
+    proc, lines = cli_subprocess(
+        ["serve", *common, "--socket", sock, "--stats_interval", "1"],
+        until="[serve] listening on")
+    serve_ready_s = time.perf_counter() - t1
+    try:
+        with Client(sock) as client:
+            served = client.predict_batch(frames, bbxs)
+        time.sleep(1.5)
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.communicate(timeout=120)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    serve_out = "".join(lines) + rest
+    commands["serve"] = {"exit": proc.returncode,
+                         "seconds": time.perf_counter() - t1,
+                         "ready_s": serve_ready_s}
+    by_command["serve"] = cli_launches_of(serve_out)
+    add_counts(acc, by_command["serve"])
+    shutdown = [line for line in serve_out.splitlines()
+                if line.startswith("[serve] shutdown:")]
+    served_gap = float(np.abs(served - direct(frames, bbxs)).max())
+
+    # test through a one-rank NCCL group, by the command line's flags
+    before = glob.glob(os.path.join(run_dir, "testing-*-result.txt"))
+    t1 = time.perf_counter()
+    code, out, counts = cli_subprocess(
+        ["test", *common, "--coordinator_address",
+         f"127.0.0.1:{free_port()}",
+         "--num_processes", "1", "--process_id", "0"])
+    commands["test_group"] = {"exit": code,
+                              "seconds": time.perf_counter() - t1}
+    by_command["test_group"] = counts
+    add_counts(acc, counts)
+    check(code == 0, f"cli test in a one-rank group: exit {code}: "
+                     f"{out[-3000:]}")
+    group_path, _ = results(run_dir, before)
+    with open(group_path) as f, open(res_path) as g:
+        group_equal = f.read() == g.read()
+
+    convs = sum(isinstance(m, layers.ConvBR)
+                for m in from_flax(variables, cfg).modules())
+    dispatches = -(-n_frames // max_batch)
+    k1 = {k: v["fused_decode"] for k, v in by_command.items()}
+    row = {"phase": "cli", "config": cfg.__dict__,
+           "frames": {"test": test_spec.exact_num, "predict": n_frames},
+           "commands": commands, "result_lines": len(names),
+           "init_params_lines": len(ip_lines),
+           "init_params_equal_to_eval_phase": init_params_equal,
+           "group_result_equal": group_equal, **gaps,
+           "served_vs_direct_mm": served_gap,
+           "serve_shutdown": shutdown, "convs_per_forward": convs,
+           "launches_by_command": {k: nonzero_counts(v)
+                                   for k, v in by_command.items()},
+           "launches": acc,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    check(all(c["exit"] == 0 for c in commands.values()),
+          f"cli: exit codes {commands}")
+    want_test = [str(n).replace("/", "\\") for f in test_spec.filenames
+                 for n in ShardReader(f)["name"]]
+    check(names == want_test[:test_spec.exact_num]
+          and len(names) == test_spec.exact_num
+          and bool(np.isfinite(xyz).all()),
+          f"cli test: {len(names)} result lines")
+    check(init_params_equal and len(ip_lines) > 0,
+          "cli test --init_params: result lines differ from "
+          "train.loop.test's on the same payload")
+    check(all(names_ == want_names for names_, _ in got.values()),
+          "cli predict: names")
+    check(gaps["checkpoint_vs_artifact_mm"] <= 1e-3
+          and gaps["checkpoint_vs_direct_mm"] <= 1e-3
+          and gaps["artifact_vs_direct_mm"] <= 1e-3,
+          f"cli predict: {gaps}")
+    check(bool(np.isfinite(got["predict_quantize"][1]).all()),
+          "cli predict --quantize: not finite")
+    check(len(shutdown) == 1 and shutdown[0].endswith("(0 errors)")
+          and served_gap <= XYZ_TOL_MM,
+          f"cli serve: {shutdown}, {served_gap} mm from a direct call")
+    check(group_equal, "cli test in a one-rank NCCL group: result file "
+                       "differs from the in-process test's")
+    check(k1["test"] == batches and k1["test_init_params"] == batches
+          and k1["test_group"] == batches
+          and by_command["test"]["fused_decode_by_path"]["hm_pixels"]
+          == batches,
+          f"cli test: K1 launched {k1}, {batches} a test expected")
+    check(k1["train"] > 0, f"cli train: K1 launched {k1['train']} times")
+    check(k1["predict"] == k1["predict_artifact"] == k1["predict_quantize"]
+          == dispatches,
+          f"cli predict: K1 launched {k1}, {dispatches} dispatches")
+    check(by_command["predict_quantize"]["int8_gemm_requant"]
+          == convs * dispatches
+          and by_command["predict"]["int8_gemm_requant"] == 0,
+          f"cli predict --quantize: K3 launched "
+          f"{by_command['predict_quantize']['int8_gemm_requant']} times, "
+          f"{convs} a forward x {dispatches} expected")
+    check(k1["serve"] > 0, f"cli serve: K1 launched {k1['serve']} times")
+    check(acc["weighted_mean_shift"] == 0 and acc["int8_dwconv_requant"] == 0
+          and acc["im2col_nhwc_cuda_calls"] == 0
+          and acc["fused_decode_by_path"]["strided"] == 0,
+          f"cli: off-path launches {acc}")
+    return acc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -3076,6 +3420,10 @@ def main() -> int:
         export_launches = phase_export(variables, net_cfg, "cuda", root)
         multigpu_launches = phase_multigpu(variables, net_cfg, root,
                                            train_root)
+        # the command line, on counts of its own
+        cli_launches = phase_cli(variables, net_cfg, "cuda",
+                                 os.path.join(root, "cli"),
+                                 eval_root=os.path.join(root, "eval"))
 
     # the serving bucket as the float nets (hm_pixels) and the int8 net
     # (pixels) hand it over
@@ -3101,6 +3449,8 @@ def main() -> int:
         "export_launches": export_launches["fused_decode"],
         "export_launches_by_path": export_launches["fused_decode_by_path"],
         "multigpu_launches": multigpu_launches["fused_decode"],
+        "cli_launches": cli_launches["fused_decode"],
+        "cli_launches_by_path": cli_launches["fused_decode_by_path"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"],
         "device_ms_channels_last": int8_row["device_ms"],
@@ -3122,6 +3472,7 @@ def main() -> int:
         "daemon_launches": daemon_launches["int8_gemm_requant"],
         "export_launches": export_launches["int8_gemm_requant"],
         "multigpu_launches": multigpu_launches["int8_gemm_requant"],
+        "cli_launches": cli_launches["int8_gemm_requant"],
         "max_abs_err": k3_total["max_abs_err"],
         "ms": k3_total["ms"], "device_ms": k3_total["device_ms"],
         "plain_ms": k3_total["plain_ms"],
@@ -3142,6 +3493,7 @@ def main() -> int:
         "daemon_launches": daemon_launches["weighted_mean_shift"],
         "export_launches": export_launches["weighted_mean_shift"],
         "multigpu_launches": multigpu_launches["weighted_mean_shift"],
+        "cli_launches": cli_launches["weighted_mean_shift"],
         "max_abs_err": k2_row["max_abs_err"],
         "ms": k2_row["ms"], "device_ms": k2_row["device_ms"],
         "host_us": k2_row["host_us"], "plain_ms": k2_row["plain_ms"],
@@ -3165,6 +3517,7 @@ def main() -> int:
         "daemon_launches": daemon_launches["int8_dwconv_requant"],
         "export_launches": export_launches["int8_dwconv_requant"],
         "multigpu_launches": multigpu_launches["int8_dwconv_requant"],
+        "cli_launches": cli_launches["int8_dwconv_requant"],
         "calls_per_forward": dw_total["calls_per_forward"],
         "max_abs_err": max(t["max_abs_err"] for t in dw_totals.values()),
         "ms": dw_total["ms"], "device_ms": dw_total["device_ms"],

@@ -75,6 +75,23 @@ def warp_image(dms: torch.Tensor, angle: torch.Tensor, ratio: torch.Tensor,
     return torch.where(valid, vals, torch.zeros_like(vals))[..., None]
 
 
+def augment_one(generator: Optional[torch.Generator], dm: torch.Tensor,
+                pose: torch.Tensor, cfg: torch.Tensor, com: torch.Tensor):
+    """Augment a single (depth map, pose) pair: :func:`augment_batch` on a
+    batch of one.
+
+    Args:
+      generator: draws the angle and the ratio (on ``dm``'s device);
+      dm: (h, w, 1) cropped raw depth, mm; pose: (3j,) xyz mm;
+      cfg: (6,) crop intrinsics; com: (3,) xyz mm.
+    Returns:
+      (augmented dm, augmented xyz pose).
+    """
+    new_dm, new_pose = augment_batch(dm[None], pose[None], cfg[None],
+                                     com[None], generator)
+    return new_dm[0], new_pose[0]
+
+
 def augment_batch(dms: torch.Tensor, poses: torch.Tensor, cfgs: torch.Tensor,
                   coms: torch.Tensor,
                   generator: Optional[torch.Generator] = None):

@@ -14,8 +14,10 @@ import torch
 
 D_RANGE = 300.0          # depth-normalization window size (mm)
 POSE_NORM_RATIO = 100.0  # xyz pose normalization divisor (mm -> units)
+PCA_NORM_RATIO = 5.0     # optional PCA-space normalization (unused hook)
 MAX_DIST_2D = 4.0        # heatmap cone radius (pixels)
 MAX_DIST_3D = 0.8        # offset cone radius (normalized units = 80 mm)
+MAXIMUM_DEPTH = 600.0    # the reference's depth ceiling (mm)
 # the network variants (densereg_tpu/config.py:64-70)
 NET_MODULES = ("um_v1", "um_v1_lite", "um_v1_deconv")
 

@@ -21,10 +21,16 @@ CPU:
     save_converted(convert("exp/train_cache/<run>/model.ckpt-219999",
                            num_stack=2, num_fea=128, num_joint=16),
                    "icvl_params.msgpack")
+
+or from the command line (:func:`main`, the JAX package's)::
+
+    python -m densereg_torch.convert --ckpt <run>/model.ckpt-219999 \
+        --out icvl_params.msgpack
 """
 
 from __future__ import annotations
 
+import argparse
 import re
 import struct
 from typing import Dict, List, Tuple
@@ -354,3 +360,30 @@ def load_converted(path: str):
     package's ``save_converted`` (``flax.serialization.msgpack_restore``)."""
     with open(path, "rb") as f:
         return unpackb(f.read())
+
+
+def _num_values(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_num_values(v) for v in tree.values())
+    return int(np.size(tree))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ckpt", required=True)
+    ap.add_argument("--num_stack", type=int, default=2)
+    ap.add_argument("--num_fea", type=int, default=128)
+    ap.add_argument("--num_joint", type=int, default=16)
+    ap.add_argument("--hg_depth", type=int, default=4,
+                    help="hourglass depth (4 for the 128x128 flagship)")
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    payload = convert(args.ckpt, args.num_stack, args.num_fea, args.num_joint,
+                      args.hg_depth)
+    save_converted(payload, args.out)
+    print(f"converted {_num_values(payload['params'])} parameters -> "
+          f"{args.out}")
+
+
+if __name__ == "__main__":
+    main()

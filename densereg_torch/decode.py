@@ -54,6 +54,23 @@ def top_k_first_index(scores: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(scores, dim=-1, descending=True, stable=True)[1][..., :k]
 
 
+def generate_candidates(refined, cand_xyz, num_pt: int):
+    """Top-k candidate positions per joint.
+
+    Args:
+      refined: (b, h, w, j) selection scores.
+      cand_xyz: (b, h, w, 3j) voted positions (point cloud + offsets).
+    Returns:
+      (scores (b, j, n), candidates (b, j, n, 3), flat pixel idx (b, j, n)).
+    """
+    b, h, w, j = refined.shape
+    scores = refined.reshape(b, h * w, j).transpose(1, 2)           # (b,j,hw)
+    top_idx = top_k_first_index(scores, num_pt)                      # (b,j,n)
+    xyz = cand_xyz.reshape(b, h * w, j, 3).transpose(1, 2)    # (b,j,hw,3)
+    cans = torch.gather(xyz, 2, top_idx[..., None].expand(-1, -1, -1, 3))
+    return torch.gather(scores, 2, top_idx), cans, top_idx
+
+
 def candidate_weights(cans, coms, cfgs, hms):
     """Reprojection weight of each candidate: ``hm`` at its rounded pixel
     on the head grid, 0 off-image.
@@ -123,6 +140,15 @@ def weighted_mean_shift(cans, weights, num_it: int, band_width: float,
         ok = den > 0.0
         cur = torch.where(ok, ftz(num / torch.where(ok, den, 1.0)), cur)
     return cur
+
+
+def mean_shift(cans, num_it: int = 10, band_width: float = 0.8):
+    """The unweighted mean shift (every weight 1), the reference's
+    alternative decode. cans (..., n, 3). Returns (..., 3)."""
+    return weighted_mean_shift(cans, torch.ones(cans.shape[:-1],
+                                                dtype=cans.dtype,
+                                                device=cans.device),
+                               num_it, band_width)
 
 
 def _sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -195,3 +221,17 @@ def decode_poses(hms, hm3s, ums, tiny_dms, cfgs, coms,
     xyz = geometry.unnorm_xyz_pose(normed.reshape(b, -1), coms)
     return {"xyz": xyz, "normed": normed, "candidates": cans,
             "weights": weights}
+
+
+def uvd_argmax(hms, ds):
+    """Heatmap-argmax fallback estimator: the first maximal pixel of each
+    joint's heatmap, with the depth map's value there.
+
+    Args: hms, ds: (b, h, w, j). Returns (b, 3j) uvd.
+    """
+    b, h, w, j = hms.shape
+    idx = torch.argmax(hms.reshape(b, h * w, j), dim=1)             # (b,j)
+    uu = (idx % w).to(torch.float32)
+    vv = (idx // w).to(torch.float32)
+    dd = torch.gather(ds.reshape(b, h * w, j), 1, idx[:, None, :])[:, 0, :]
+    return torch.stack([uu, vv, dd], dim=-1).reshape(b, 3 * j)

@@ -20,6 +20,9 @@ from densereg_torch.ops import _build
 
 MAX_JOINTS = 32   # the grid's joint axis: ceil(J / 4) blocks of 4 warps
 MAX_PICKS = 8     # the shared tail's 8-lane segment (kSeg in the source)
+# the mean shift's start: the vote grid's cells per axis, and all its cells
+GRID = 4
+NUM_CELLS = GRID ** 3
 # the kernel's staging paths, by the layouts of hm and hm3: both read along
 # pixel stride 1 (NHWC views of NCHW heads), hm or hm3 or both read along
 # channel stride 1 (channels-last heads, J % 4 == 0), any other strides
@@ -43,7 +46,7 @@ def _lib() -> ctypes.CDLL:
 def fused_decode_reference(hms, hm3s, ums, tiny_dms, cfgs, coms,
                            num_pt: int = 5, num_it: int = 10,
                            band_width: float = 0.4,
-                           vote_grid: int = 4) -> torch.Tensor:
+                           vote_grid: int = GRID) -> torch.Tensor:
     """Plain torch form of the kernel: normalized poses ``(b, j, 3)``.
 
     The kernel is held to this form evaluated on the CPU: on CUDA tensors
@@ -79,7 +82,7 @@ def _check(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt):
 
 def fused_decode(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt: int = 5,
                  num_it: int = 10, band_width: float = 0.4,
-                 vote_grid: int = 4) -> torch.Tensor:
+                 vote_grid: int = GRID) -> torch.Tensor:
     """hms/hm3s (b, h, w, j); ums (b, h, w, 3j); tiny_dms (b, h, w, 1);
     cfgs (b, 6); coms (b, 3), all float32 with any strides -> normalized
     poses (b, j, 3).

@@ -19,6 +19,62 @@ from densereg_torch import geometry
 from densereg_torch.config import D_RANGE
 
 
+def area_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Integer-ratio AREA (box-mean) shrink of ``(..., h, w, c)``, TF's
+    ``ResizeMethod.AREA``: not what the reference's ``method=2`` resizes
+    do (:func:`method2_resize`); the antialiased option."""
+    h, w = x.shape[-3], x.shape[-2]
+    if h % out_h or w % out_w:
+        raise ValueError(
+            f"area_resize needs integer ratio, got {h}x{w} -> {out_h}x{out_w}")
+    lead, c = x.shape[:-3], x.shape[-1]
+    x = x.reshape(lead + (out_h, h // out_h, out_w, w // out_w, c))
+    return x.mean(dim=(-4, -2))
+
+
+def _legacy_src(n_in: int, n_out: int, device) -> torch.Tensor:
+    """TF1's legacy source coordinate of each output index,
+    ``dst * (n_in / n_out)`` in float32."""
+    scale = torch.tensor(n_in / n_out, dtype=torch.float32, device=device)
+    return torch.arange(n_out, dtype=torch.float32, device=device) * scale
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int,
+                    out_w: int) -> torch.Tensor:
+    """TF1 legacy bilinear resize of ``(..., h, w, c)``
+    (``align_corners=False``): source coordinate ``dst * (in / out)`` with
+    edge clamping, not half-pixel centers; interpolated in float32 and
+    returned in ``img``'s dtype."""
+    h, w = img.shape[-3], img.shape[-2]
+
+    def axis(n_in, n_out):
+        src = _legacy_src(n_in, n_out, img.device)
+        i0 = torch.floor(src).to(torch.int64).clamp(0, n_in - 1)
+        i1 = torch.clamp_max(i0 + 1, n_in - 1)
+        return i0, i1, src - i0.to(torch.float32)
+
+    y0, y1, fy = axis(h, out_h)
+    x0, x1, fx = axis(w, out_w)
+    top = img.index_select(-3, y0)
+    bot = img.index_select(-3, y1)
+    tl, tr = (top.index_select(-2, i).to(torch.float32) for i in (x0, x1))
+    bl, br = (bot.index_select(-2, i).to(torch.float32) for i in (x0, x1))
+    fx = fx[:, None]
+    t = tl + (tr - tl) * fx
+    b = bl + (br - bl) * fx
+    out = t + (b - t) * fy[:, None, None]
+    return out.to(img.dtype)
+
+
+def resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """TF1 legacy nearest resize of ``(..., h, w, c)``
+    (``align_corners=False``): index ``floor(dst * in / out)``."""
+    h, w = img.shape[-3], img.shape[-2]
+    ys = _legacy_src(h, out_h, img.device).to(torch.int64).clamp(0, h - 1)
+    xs = _legacy_src(w, out_w, img.device).to(torch.int64).clamp(0, w - 1)
+    return img.index_select(-3, ys).index_select(-2, xs)
+
+
 def method2_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """The reference's ``resize_images(x, s, 2)`` shrink on ``(..., h, w, c)``:
     for an integer ratio it is an exact ``[::r, ::r]`` subsample."""

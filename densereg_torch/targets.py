@@ -3,8 +3,8 @@ heatmaps and unit-offset maps.
 
 Mirrors ``densereg_tpu/targets.py``: every map is one broadcast expression
 over ``(b, h, w, j)``, NHWC like the net's heads, on the device the inputs
-lie on. ``um_xy_angle`` draws the unit offsets for the debug images; the
-other visualisation helpers of that module are not ported.
+lie on. ``um_xy_angle`` and ``um_z_component`` draw the unit offsets for
+the debug images; ``gaussian_heatmaps`` is the legacy per-point target.
 """
 
 from __future__ import annotations
@@ -102,6 +102,32 @@ def synthesize(poses: torch.Tensor, cfgs: torch.Tensor, coms: torch.Tensor,
     hm3 = hm3d(om)
     um = unit_offset_maps(om, hm3)
     return {"hm2": gt_hm2, "hm3": hm3, "um": um, "om": om, "tiny_dm": tiny_dm}
+
+
+def um_z_component(ums: torch.Tensor) -> torch.Tensor:
+    """The z component of each joint's unit offsets (the reference's
+    ``_vis_um_z``). Args: ums (b, h, w, 3j). Returns (b, h, w, j)."""
+    b, h, w, c = ums.shape
+    return ums.reshape(b, h, w, c // 3, 3)[..., 2]
+
+
+def gaussian_heatmaps(uvd: torch.Tensor, out_h: int, out_w: int,
+                      sigma: float = 3.0) -> torch.Tensor:
+    """Per-point Gaussian heatmaps, the legacy/bigHand target path: the
+    normalized Gaussian bump ``exp(-d^2 / (2 sigma^2))`` (peak 1) at each
+    point, clipped to the grid.
+
+    Args: uvd (..., 3j) or (..., j, 3). Returns (..., out_h, out_w, j).
+    """
+    pts = (uvd.reshape(uvd.shape[:-1] + (-1, 3)) if uvd.shape[-1] != 3
+           else uvd)
+    uu = pts[..., 0].clamp(0, out_w - 1)
+    vv = pts[..., 1].clamp(0, out_h - 1)
+    col = torch.arange(out_w, dtype=uvd.dtype, device=uvd.device)
+    row = torch.arange(out_h, dtype=uvd.dtype, device=uvd.device)
+    d2 = (torch.square(col[None, :, None] - uu[..., None, None, :])
+          + torch.square(row[:, None, None] - vv[..., None, None, :]))
+    return torch.exp(-d2 / (2.0 * sigma * sigma))
 
 
 def um_xy_angle(ums: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,16 @@
-"""Step timing.
+"""Step timing and traces.
 
 :class:`StepTimer` is the JAX package's wall-clock step timer
 (``densereg_tpu/utils/profiling.py``); on a CUDA device it synchronises
 the device before it reads the clock, so a step's time includes its
 device work. :class:`PhaseTimer` splits steps into phases by CUDA events.
+:func:`trace_context` traces a block with ``torch.profiler``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
@@ -81,3 +84,28 @@ class PhaseTimer:
         for (_, a), (name, b) in zip(self._events, self._events[1:]):
             out[name] += a.elapsed_time(b)
         return dict(out)
+
+
+@contextlib.contextmanager
+def trace_context(logdir: Optional[str]):
+    """``torch.profiler`` trace of the block (the host, and the card where
+    CUDA is available) written into ``logdir`` as a Chrome trace,
+    ``trace_<time ns>.pt.trace.json``, when a logdir is given; no-op
+    otherwise."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        try:
+            yield
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(
+        os.path.join(logdir, f"trace_{time.time_ns()}.pt.trace.json"))

@@ -137,11 +137,11 @@ def test_load_and_save_converted_across_packages(tmp_path):
         tconvert.packb({"a": (1, 2)})
 
 
-def test_tf1_checkpoint_converts_as_in_jax(tmp_path):
+@pytest.fixture(scope="module")
+def tf1_checkpoint(tmp_path_factory):
     """A TF1 checkpoint in the reference graph's creation order and names
     (``tests/ref_tf_graph.py``, as ``tests/test_tf_converter_real.py``
-    writes it): both packages' ``convert`` give the same payload, and the
-    same file; the port's net takes it."""
+    writes it), and its graph's shape."""
     tf = pytest.importorskip("tensorflow")
     from tests.ref_tf_graph import GraphSpec, RefGraphEmulator
 
@@ -153,8 +153,15 @@ def test_tf1_checkpoint_converts_as_in_jax(tmp_path):
         saver = tf.compat.v1.train.Saver()
         with tf.compat.v1.Session() as sess:
             sess.run(tf.compat.v1.global_variables_initializer())
-            ckpt = saver.save(sess, str(tmp_path / "model.ckpt"),
-                              global_step=219999)
+            ckpt = saver.save(sess, str(tmp_path_factory.mktemp("tf1")
+                                        / "model.ckpt"), global_step=219999)
+    return ckpt, spec
+
+
+def test_tf1_checkpoint_converts_as_in_jax(tmp_path, tf1_checkpoint):
+    """Both packages' ``convert`` give the same payload from the TF1
+    checkpoint, and the same file; the port's net takes it."""
+    ckpt, spec = tf1_checkpoint
     args = dict(num_stack=spec.stack, num_fea=spec.fea, num_joint=spec.j,
                 hg_depth=spec.hg_depth)
     ours, theirs = tconvert.convert(ckpt, **args), jconvert(ckpt, **args)
@@ -169,6 +176,34 @@ def test_tf1_checkpoint_converts_as_in_jax(tmp_path):
     tloop._load_converted_into(net, ours, "converted")
     assert torch.equal(net.stem_conv.conv.kernel, torch.from_numpy(
         ours["params"]["stem_conv"]["conv"]["kernel"]).permute(3, 2, 0, 1))
+
+
+def test_convert_command_line_writes_the_jax_payload(tmp_path, monkeypatch,
+                                                     tf1_checkpoint):
+    """``python -m densereg_torch.convert`` on the TF1 checkpoint writes the
+    file that ``densereg_tpu.convert.main`` writes from the same flags."""
+    import subprocess
+    import sys
+
+    from densereg_tpu.convert import main as jmain
+
+    ckpt, spec = tf1_checkpoint
+    flags = ["--ckpt", ckpt, "--num_stack", str(spec.stack), "--num_fea",
+             str(spec.fea), "--num_joint", str(spec.j), "--hg_depth",
+             str(spec.hg_depth)]
+    monkeypatch.setattr(sys, "argv", ["convert", *flags, "--out",
+                                      str(tmp_path / "j.msgpack")])
+    jmain()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "densereg_torch.convert", *flags, "--out",
+         str(tmp_path / "t.msgpack")], cwd=root, capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("converted ")
+    assert out.stdout.rstrip().endswith(str(tmp_path / "t.msgpack"))
+    assert ((tmp_path / "t.msgpack").read_bytes()
+            == (tmp_path / "j.msgpack").read_bytes())
 
 
 @pytest.fixture(scope="module")

@@ -644,3 +644,22 @@ def test_multigpu_on_card(cuda, tmp_path):
                               str(tmp_path), str(tmp_path / "train"),
                               n_frames=64, max_batch=32, n_calib=8)
     assert launches["fused_decode"] == 4 and launches["int8_gemm_requant"] > 0
+
+
+@pytest.mark.cuda
+def test_cli_on_card(cuda, tmp_path, monkeypatch):
+    """The command line on the card at a small size: convert, train, test
+    (and ``--init_params`` against ``train.loop.test``), export, predict
+    through the checkpoint, the artifact and int8, serve in a child process
+    and test in a one-rank NCCL group; every check of
+    ``chip_smoke.phase_cli`` raises if off."""
+    from chip_smoke import phase_cli
+    from densereg_torch import NetConfig
+    from densereg_torch.models import init_variables
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = NetConfig(num_stack=2, num_fea=16, num_joint=16, input_hw=(32, 32))
+    launches = phase_cli(init_variables(cfg, seed=4), cfg, cuda,
+                         str(tmp_path))
+    assert launches["fused_decode"] > 0 and launches["int8_gemm_requant"] > 0

@@ -185,3 +185,88 @@ def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
     monkeypatch.undo()
     assert set(_build.sources()) >= {"fused_decode", "int8_gemm", "meanshift"}
     assert all(_build.library_path(n).suffix == ".so" for n in _build.sources())
+
+
+JAX_PKG = PKG.parent / "densereg_tpu"
+# Public names of the JAX package whose counterpart in the port has another
+# name or lives in another module: "module::name" -> ("module::name", why)
+RENAMED = {
+    "ops/int8_gemm.py::reference_gemm_requant": (
+        "ops/int8_gemm.py::int8_gemm_requant_reference",
+        "K3's plain version, named after the kernel it checks, as every "
+        "plain version of the port's kernels is"),
+    "train/step.py::train_step_single": (
+        "train/step.py::train_step",
+        "nothing is jitted: one eager function is the step, with the "
+        "gradient all-reduce of a group where JAX had axis_name"),
+    "train/step.py::make_train_step": (
+        "train/step.py::train_step",
+        "make_train_step jits and shards the JAX step; the eager step needs "
+        "no factory (make_fused_train_step is the port's fused form)"),
+    "data/pipeline.py::device_prefetch": (
+        "data/pipeline.py::InputPipeline",
+        "the pipeline copies each batch from pinned memory without "
+        "blocking, behind the running step, so no lookahead wrapper is "
+        "needed"),
+    "ops/meanshift_pallas.py::weighted_mean_shift_pallas": (
+        "ops/meanshift.py::weighted_mean_shift_cuda",
+        "K2, the same stage as a hand-written CUDA kernel"),
+    "ops/meanshift_pallas.py::GRID": (
+        "ops/fused_decode.py::GRID",
+        "the vote grid, one constant for the decode's kernels"),
+    "ops/meanshift_pallas.py::NUM_CELLS": (
+        "ops/fused_decode.py::NUM_CELLS",
+        "the vote grid's cells, one constant for the decode's kernels"),
+    "ops/meanshift_pallas.py::TILE_M": (
+        "ops/meanshift.py::MAX_CANDIDATES",
+        "the Pallas kernel tiles 512 problems on the lanes of a grid step; "
+        "the CUDA kernel gives each problem one 8-lane segment, so its "
+        "launch is bounded by the candidates a problem"),
+}
+
+
+def _public_names(path: pathlib.Path):
+    """Top-level public functions, classes and UPPER constants."""
+    out = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            out |= {t.id for t in targets if isinstance(t, ast.Name)
+                    and t.id.isupper()}
+    return {n for n in out if not n.startswith("_")}
+
+
+def test_every_public_name_has_a_counterpart():
+    """Every public function, class and UPPER constant of every module of
+    the JAX package is defined in the port's module of the same path, or
+    ``RENAMED`` names where its counterpart lives and why; every entry of
+    ``RENAMED`` names a JAX name and a port name that exist."""
+    missing = []
+    for path in sorted(JAX_PKG.rglob("*.py")):
+        rel = path.relative_to(JAX_PKG).as_posix()
+        port = PKG / rel
+        have = _public_names(port) if port.is_file() else set()
+        for name in sorted(_public_names(path) - have):
+            if f"{rel}::{name}" not in RENAMED:
+                missing.append(f"{rel}::{name}")
+    assert not missing, missing
+    for key, (target, why) in RENAMED.items():
+        jmod, jname = key.split("::")
+        tmod, tname = target.split("::")
+        assert jname in _public_names(JAX_PKG / jmod), key
+        assert tname in _public_names(PKG / tmod), target
+        assert len(why) > 20, key
+
+
+def test_cli_and_convert_main_exist():
+    """The command line and the converter's command line, where the import
+    checks above look."""
+    from densereg_torch import convert
+    from densereg_torch.cli import main
+
+    assert callable(convert.main) and callable(main.main)
+    assert (PKG / "cli" / "__init__.py").is_file()
