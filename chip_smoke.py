@@ -126,12 +126,26 @@ Phases, each printed as one JSON line:
    child process, answered by a ``Client`` and stopped by SIGTERM; ``test``
    in a child process through a one-rank NCCL group by the command line's
    flags, whose result file must equal the in-process one.
+15. ``tools``, the repository's tools on the port
+   (``python -m densereg_torch.tools.*``) at the same widths, seeded
+   weights, on counts of their own: ``serve_probe --net s2f128 --max_batch
+   256`` self-hosted in float32 and ``--quantize``, 64 requests at depth 1
+   and 1,024 at depth 256 (no error reply, K1 once a daemon batch, K3 once
+   a convolution of each int8 forward, frames coalesced at depth 256);
+   ``latency_probe --batches 1,16,256`` in int8 and bfloat16, its program
+   against a direct ``make_infer_fn`` call on a ``Predictor``'s net (the
+   decode's limit); ``trace_summary`` on a trace of one calibrated int8
+   dispatch of 256 frames (K1 1 call, K3 one a convolution, K2 and DW
+   none, the rows summing to the trace's kernel time); ``compare_results``
+   on phase 8's result file against itself (0.0 mm) and against a copy
+   moved by 1 mm (exit 1 above a 0.5 mm gate); and no child process for
+   ``train`` or ``test`` on one card.
 
 Then a ``kernels`` line (``train_launches``, ``eval_launches``,
 ``variants_launches``, ``tooling_launches``, ``daemon_launches``,
-``export_launches``, ``multigpu_launches``, ``cli_launches``: each
-kernel's launches in phases 7 to 14; the depthwise kernel's ``launches``
-are phase 9's), the card's ``nvidia-smi`` name and power limit, and
+``export_launches``, ``multigpu_launches``, ``cli_launches``,
+``tools_launches``: each kernel's launches in phases 7 to 15; the
+depthwise kernel's ``launches`` are phase 9's), the card's ``nvidia-smi`` name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or when any phase fails, it exits non-zero and prints no result.
 """
@@ -3346,6 +3360,291 @@ def phase_cli(variables, net_cfg: NetConfig, device, root: str,
     return acc
 
 
+# --------------------------------------------------------------------------
+# the repository's tools on the port
+# --------------------------------------------------------------------------
+
+def run_tool(main_fn, argv):
+    """``main_fn(argv)`` of a ``densereg_torch.tools`` module with its
+    standard output captured (and echoed to the standard error): the exit
+    code and the lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main_fn(argv)
+    sys.stderr.write(buf.getvalue())
+    return code, buf.getvalue().splitlines()
+
+
+def tools_serve_probe(desc: str, quantize: bool, convs: int, device,
+                      max_batch: int = 256, depths=((1, 64), (256, 1024))):
+    """``serve_probe --net desc`` self-hosted on the card at ``max_batch``,
+    one call a (depth, requests) pair, each on counts of its own: its rows,
+    K1 once a daemon batch (the server's batches, the probe's warm-up
+    request included, and the two warm-up dispatches, float32 and uint16,
+    of ``Predictor.warmup``), K3 ``convs`` times each int8 forward, no
+    error reply (the probe stops at one) and frames coalesced at the deepest
+    pipeline."""
+    from densereg_torch.tools import serve_probe
+
+    rows, launches = [], {}
+    for depth, requests in depths:
+        counts = {}
+        with counted(counts):
+            code, lines = run_tool(serve_probe.main, [
+                "--net", desc, "--max_batch", str(max_batch),
+                "--requests", str(requests), "--inflight", str(depth),
+                "--device", torch.device(device).type,
+                *(["--quantize"] if quantize else [])])
+        torch.cuda.synchronize()
+        (row,) = [json.loads(line) for line in lines if line.startswith("{")]
+        rows.append(row)
+        dispatches = row["server_batches"] + 2
+        check(code == 0, f"serve_probe: exit {code}")
+        check(counts["fused_decode"] == dispatches,
+              f"serve_probe depth {depth}: K1 launched "
+              f"{counts['fused_decode']} times, {dispatches} dispatches")
+        check(counts["int8_gemm_requant"] == (convs * dispatches
+                                              if quantize else 0),
+              f"serve_probe depth {depth}: K3 launched "
+              f"{counts['int8_gemm_requant']} times, {convs} a forward x "
+              f"{dispatches} dispatches expected")
+        add_counts(launches, counts)
+    check(rows[-1]["row_mean_batch"] > 1,
+          f"serve_probe: no coalescing at depth {depths[-1][0]}: {rows[-1]}")
+    return rows, launches
+
+
+def tools_latency(desc: str, batches: str, quant: bool, device,
+                  iters: int = 10):
+    """``latency_probe`` on the card (calibrated int8, or bfloat16 under
+    ``--no-quant``): its rows, on counts of their own."""
+    from densereg_torch.tools import latency_probe
+
+    counts = {}
+    with counted(counts):
+        code, lines = run_tool(latency_probe.main, [
+            "--net", desc, "--batches", batches, "--iters", str(iters),
+            "--device", torch.device(device).type,
+            *([] if quant else ["--no-quant"])])
+    check(code == 0, f"latency_probe: exit {code}")
+    out = json.loads(lines[-1])
+    check(out["metric"] == "serving latency sweep"
+          and [r["batch"] for r in out["rows"]]
+          == [int(b) for b in batches.split(",")],
+          f"latency_probe: last line {lines[-1]}")
+    return out["rows"], lines[0], counts
+
+
+def tools_latency_check(desc: str, b: int, quant: bool, device):
+    """The latency probe's program (``build_program``) against a direct
+    call of ``eval.loop.make_infer_fn`` on the net a ``Predictor`` builds
+    from the same seeded weights (calibrated on the same maps for int8):
+    the largest xyz gap in mm on the same maps. Returns it with the
+    program's and the predictor's pieces, for the trace."""
+    from densereg_torch.eval.loop import make_infer_fn
+    from densereg_torch.tools.latency_probe import build_program
+    from densereg_torch.tools.serve_probe import net_config
+
+    dtype = "bfloat16"
+    cfg = dataclasses.replace(net_config(desc), compute_dtype=dtype)
+    infer, net, dms, cfgs, coms = build_program(b, dtype, quant, cfg, device)
+    with torch.inference_mode():
+        timed = infer(net, dms, cfgs, coms).float().cpu()
+    pred = Predictor(init_variables(cfg, seed=0), cfg, ICVL, max_batch=b,
+                     quantize=quant, device=device)
+    if quant:
+        calibrate(pred.net, [norm_dm(dms, coms)])
+    direct = make_infer_fn(pred.net_cfg, EvalConfig(batch_size=b), device)(
+        pred.net, dms, cfgs, coms).float().cpu()
+    check(bool(torch.isfinite(timed).all()), "latency_probe: xyz not finite")
+    return float((timed - direct).abs().max()), pred
+
+
+def tools_trace(pred: Predictor, frames, bbxs, root: str, convs: int,
+                tries: int = 3):
+    """``trace_summary`` on a ``torch.profiler`` trace of one dispatch of
+    ``pred`` (``utils.profiling.trace_context``): its kernel rows by id,
+    K1 1 call and K3 ``convs`` (int8) calls, K2 and DW none, and the rows'
+    sum against the trace's kernel time summed here from the file. The
+    profiler now and then loses records (``device_ms``): a trace whose
+    counts are off is taken again, up to ``tries`` in all."""
+    from densereg_torch.tools import trace_summary
+    from densereg_torch.utils.profiling import trace_context
+
+    want = {"K1": 1, "K2": 0, "K3": convs, "DW": 0}
+    for attempt in range(tries):
+        logdir = os.path.join(root, f"trace_{attempt}")
+        pred(frames, bbxs)   # warm
+        torch.cuda.synchronize()
+        with trace_context(logdir):
+            pred(frames, bbxs)
+        (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        code, lines = run_tool(trace_summary.main,
+                               [path, "--top", "100000"])
+        check(code == 0, f"trace_summary: exit {code}")
+        rows = [line.split(None, 4) for line in lines[3:]]
+        calls = dict.fromkeys(want, 0)
+        ms = dict.fromkeys(want, 0.0)
+        for row in rows:
+            if row[3] in calls:
+                calls[row[3]] += int(row[2])
+                ms[row[3]] += float(row[0])
+        if calls == want:
+            break
+    with open(path) as f:
+        kernel_us = sum(e.get("dur", 0) for e in json.load(f)["traceEvents"]
+                        if e.get("ph") == "X" and e.get("cat") == "kernel")
+    summed, total_us, devices = trace_summary.summarize(
+        trace_summary.load_trace(path))
+    out = {"calls_by_id": calls, "ms_by_id": ms, "rows": len(rows),
+           "total_line": lines[1], "total_ms": total_us / 1e3,
+           "kernel_ms_in_file": kernel_us / 1e3, "devices": devices,
+           "attempts": attempt + 1,
+           "top": [{"ms": float(r[0]), "calls": int(r[2]), "id": r[3],
+                    "name": r[4][:60]} for r in rows[:5]]}
+    check(calls == want, f"trace_summary: kernel calls by id {calls}, "
+                         f"{want} expected")
+    check(len(rows) == len(summed)
+          and abs(sum(us for _, us, _ in summed) - kernel_us)
+          <= 1e-9 * max(kernel_us, 1.0)
+          and abs(total_us - kernel_us) <= 1e-9 * max(kernel_us, 1.0)
+          and f"total {kernel_us / 1e3:.2f} ms/step" in lines[1],
+          f"trace_summary: rows sum to {total_us} us, the trace's kernels "
+          f"{kernel_us} us")
+    return out
+
+
+def tools_compare(result_path: str, root: str) -> dict:
+    """``compare_results``: a result file against itself (0.0 mm, exit 0)
+    and against a copy moved by +1 mm on the x axis of every joint (a 1.0
+    mm mean to the file's rounding, exit 1 above a 0.5 mm gate)."""
+    from densereg_torch.eval.writer import ResultWriter
+    from densereg_torch.tools import compare_results
+
+    names, xyz = read_result_file(result_path)
+    moved = os.path.join(root, "moved-result.txt")
+    shifted = xyz.astype(np.float64)
+    shifted[:, 0::3] += 1.0
+    with ResultWriter(moved) as w:
+        w.write_batch(names, shifted)
+    same = compare_results.compare(result_path, result_path)
+    code_same, lines_same = run_tool(compare_results.main,
+                                     [result_path, result_path])
+    off = compare_results.compare(result_path, moved)
+    code_gate, lines_gate = run_tool(compare_results.main, [
+        result_path, moved, "--max_mean_delta", "0.5"])
+    out = {"frames": same["frames"],
+           "self_mean_mm": same["mean_joint_error_mm"],
+           "self_exit": code_same,
+           "moved_mean_mm": off["mean_joint_error_mm"],
+           "moved_max_mm": off["max_joint_error_mm"],
+           "gate_0_5_exit": code_gate, "gate_line": lines_gate[-1]}
+    check(same["mean_joint_error_mm"] == 0.0 and code_same == 0
+          and "mean 3D joint error: 0.0000 mm" in lines_same,
+          f"compare_results on one file: {out}")
+    check(abs(off["mean_joint_error_mm"] - 1.0) <= RESULT_ROUNDING_MM
+          and abs(off["max_joint_error_mm"] - 1.0) <= RESULT_ROUNDING_MM
+          and code_gate == 1 and lines_gate[-1].startswith("FAIL"),
+          f"compare_results against the moved copy: {out}")
+    return out
+
+
+def phase_tools(net_cfg: NetConfig, device, root: str, eval_root=None,
+                latency_batches: str = "1,16,256", trace_batch: int = 256,
+                max_batch: int = 256, depths=((1, 64), (256, 1024))):
+    """The repository's tools on the port (``densereg_torch.tools``) at
+    ``net_cfg``'s widths (16 joints, 128 input: the tools' own net
+    configs, seeded weights), on counts of their own: ``serve_probe --net``
+    self-hosted in float32 and ``--quantize`` (K1 once a daemon batch, K3
+    once a convolution of each int8 forward), ``latency_probe`` in int8
+    and bfloat16 (its program against a direct call on a ``Predictor``'s
+    net), ``trace_summary`` on a trace of one int8 dispatch, and
+    ``compare_results`` on phase 8's result file (``eval_root``; without
+    it, a file of the latency check's predictor). Also: with the cards
+    this process sees, ``train`` and ``test`` start no child process (the
+    ``cli`` phase ran them in this process). Returns the launches of the
+    probes."""
+    from densereg_torch.cli import main as cli_main_mod
+
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    desc = f"s{net_cfg.num_stack}f{net_cfg.num_fea}"
+    convs = sum(isinstance(m, layers.ConvBR)
+                for m in from_flax(init_variables(net_cfg, seed=SEED),
+                                   net_cfg).modules())
+    os.makedirs(root, exist_ok=True)
+    acc, row = {}, {"phase": "tools", "net": desc, "convs_per_forward": convs}
+    seconds = {}
+
+    t1 = time.perf_counter()
+    serve = {}
+    for name, quantize in (("float32", False), ("int8_dynamic", True)):
+        rows, counts = tools_serve_probe(desc, quantize, convs, device,
+                                         max_batch, depths)
+        serve[name] = [{k: r[k] for k in ("inflight", "requests", "fps",
+                                          "p50_ms", "p99_ms",
+                                          "row_mean_batch",
+                                          "server_batches")}
+                       for r in rows]
+        add_counts(acc, counts)
+        row[f"serve_probe_{name}_launches"] = nonzero_counts(counts)
+    row["serve_probe"] = serve
+    seconds["serve_probe"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    latency = {}
+    for name, quant in (("int8", True), ("bfloat16", False)):
+        rows, first, counts = tools_latency(desc, latency_batches, quant,
+                                            device)
+        latency[name] = {"rows": rows, "device_line": first}
+        add_counts(acc, counts)
+    row["latency_probe"] = latency
+    b = int(latency_batches.split(",")[-1])
+    gaps = {}
+    gaps["bfloat16"], _ = tools_latency_check(desc, b, False, device)
+    gaps["int8"], pred = tools_latency_check(desc, b, True, device)
+    row["latency_program_vs_direct_mm"] = gaps
+    check(max(gaps.values()) <= XYZ_TOL_MM,
+          f"latency_probe: the timed program {gaps} mm from a direct call")
+    seconds["latency_probe"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    frames, bbxs = hand_frames(np.random.default_rng(SEED + 29), trace_batch)
+    row["trace_summary"] = tools_trace(pred, frames, bbxs,
+                                       os.path.join(root, "trace"), convs)
+    seconds["trace_summary"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    if eval_root is not None:
+        (result_path,) = glob.glob(os.path.join(
+            eval_root, "card", "*", "testing-*-result.txt"))
+    else:
+        from densereg_torch.eval.writer import ResultWriter
+
+        result_path = os.path.join(root, "served-result.txt")
+        with ResultWriter(result_path) as w:
+            w.write_batch([f"frame_{i:03d}" for i in range(trace_batch)],
+                          pred(frames, bbxs))
+    row["compare_results"] = tools_compare(result_path, root)
+    seconds["compare_results"] = time.perf_counter() - t1
+
+    parse = cli_main_mod.build_parser().parse_args
+    row["launcher"] = {
+        "visible_cards": torch.cuda.device_count(),
+        "children": {cmd: cli_main_mod.local_group_size(parse([cmd]))
+                     for cmd in ("train", "test")}}
+    check(torch.cuda.device_count() > 1
+          or not any(row["launcher"]["children"].values()),
+          f"cli: a launch on one card {row['launcher']}")
+    row.update(launches=acc, seconds_by_tool=seconds,
+               seconds=time.perf_counter() - t0)
+    emit(row)
+    check(acc["weighted_mean_shift"] == 0 and acc["int8_dwconv_requant"] == 0
+          and acc["im2col_nhwc_cuda_calls"] == 0,
+          f"tools: off-path launches {acc}")
+    return acc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -3424,6 +3723,10 @@ def main() -> int:
         cli_launches = phase_cli(variables, net_cfg, "cuda",
                                  os.path.join(root, "cli"),
                                  eval_root=os.path.join(root, "eval"))
+        # the repository's tools on the port, on counts of their own
+        tools_launches = phase_tools(net_cfg, "cuda",
+                                     os.path.join(root, "tools"),
+                                     eval_root=os.path.join(root, "eval"))
 
     # the serving bucket as the float nets (hm_pixels) and the int8 net
     # (pixels) hand it over
@@ -3450,6 +3753,8 @@ def main() -> int:
         "export_launches_by_path": export_launches["fused_decode_by_path"],
         "multigpu_launches": multigpu_launches["fused_decode"],
         "cli_launches": cli_launches["fused_decode"],
+        "tools_launches": tools_launches["fused_decode"],
+        "tools_launches_by_path": tools_launches["fused_decode_by_path"],
         "cli_launches_by_path": cli_launches["fused_decode_by_path"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"],
@@ -3473,6 +3778,7 @@ def main() -> int:
         "export_launches": export_launches["int8_gemm_requant"],
         "multigpu_launches": multigpu_launches["int8_gemm_requant"],
         "cli_launches": cli_launches["int8_gemm_requant"],
+        "tools_launches": tools_launches["int8_gemm_requant"],
         "max_abs_err": k3_total["max_abs_err"],
         "ms": k3_total["ms"], "device_ms": k3_total["device_ms"],
         "plain_ms": k3_total["plain_ms"],
@@ -3494,6 +3800,7 @@ def main() -> int:
         "export_launches": export_launches["weighted_mean_shift"],
         "multigpu_launches": multigpu_launches["weighted_mean_shift"],
         "cli_launches": cli_launches["weighted_mean_shift"],
+        "tools_launches": tools_launches["weighted_mean_shift"],
         "max_abs_err": k2_row["max_abs_err"],
         "ms": k2_row["ms"], "device_ms": k2_row["device_ms"],
         "host_us": k2_row["host_us"], "plain_ms": k2_row["plain_ms"],
@@ -3518,6 +3825,7 @@ def main() -> int:
         "export_launches": export_launches["int8_dwconv_requant"],
         "multigpu_launches": multigpu_launches["int8_dwconv_requant"],
         "cli_launches": cli_launches["int8_dwconv_requant"],
+        "tools_launches": tools_launches["int8_dwconv_requant"],
         "calls_per_forward": dw_total["calls_per_forward"],
         "max_abs_err": max(t["max_abs_err"] for t in dw_totals.values()),
         "ms": dw_total["ms"], "device_ms": dw_total["device_ms"],

@@ -32,19 +32,39 @@ option          subcommands                      difference
                                                  always the fused kernel,
                                                  on the CPU its plain
                                                  version
+--mesh          train, test                      on more than one visible
+                                                 device: one process a
+                                                 device in a local group,
+                                                 each reading its share of
+                                                 the shards and seeding
+                                                 with seed + 104729·rank
+                                                 (the JAX package drives
+                                                 every local chip from one
+                                                 process)
 ==============  ===============================  ==========================
 
 Help texts name ``torch.profiler`` and ``torch.export`` where the JAX ones
 name ``jax.profiler`` and ``jax.export``. Under ``--coordinator_address``
-the processes join a ``torch.distributed`` group (NCCL with ``--device
-cuda``, gloo with ``--device cpu``) before anything touches the card.
-``check`` and ``--debug_level`` >= 1 draw with matplotlib.
+(or ``DENSEREG_NUM_PROCESSES``, ``parallel.initialize_distributed``) the
+processes join a ``torch.distributed`` group (NCCL with ``--device cuda``,
+gloo with ``--device cpu``) before anything touches the card; rank ``i``
+takes the ``i``-th card of ``DENSEREG_VISIBLE_DEVICES``
+(``parallel.distributed.local_card``). Without either, ``train`` and
+``test`` with ``--mesh`` (the default) on a machine of more than one
+visible device start that group themselves: one child a device, each
+running this same command line with the group's flags added
+(:func:`launch_local_group`). ``check`` and ``--debug_level`` >= 1 draw
+with matplotlib.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import signal
+import socket
+import subprocess
 import sys
 import threading
 import time
@@ -63,6 +83,10 @@ DIFFERENCES = (
     (("test",), "--use_pallas",
      "accepted and ignored: the fused decode kernel on the card, its plain "
      "version on the CPU"),
+    (("train", "test"), "--mesh",
+     "on more than one visible device: one process a device in a local "
+     "group, each reading its share of the shards and seeding with seed + "
+     "104729*rank (JAX: every local chip from one process)"),
 )
 
 
@@ -100,9 +124,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--base_dir", default="./exp/train_cache/")
     p.add_argument("--mesh", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="data parallel over the processes of the group "
-                        "(one card each), or a Predictor over every "
-                        "visible card")
+                   help="train and test: data parallel, one process a "
+                        "visible card (the command starts them where no "
+                        "group is given)")
     # multi-process (torch.distributed): run the SAME command in every
     # process with its own --process_id; rank 0 writes the files
     p.add_argument("--coordinator_address", default=None,
@@ -142,23 +166,112 @@ def _configs(args, jnt_num):
 
 
 def _mesh(args):
-    """None under ``--no-mesh`` or where the run has one process and one
-    device; else ``parallel.make_mesh()``: this rank's card under a group,
-    every visible card without one (the CPU with ``--device cpu``)."""
-    if not args.mesh:
-        return None
+    """The group's mesh, this rank's device (``parallel.make_mesh``), when
+    the process is one of a group of several and ``--mesh`` is on; else
+    None, one device. (Without a group, more than one visible device makes
+    ``main`` start a group first, :func:`launch_local_group`.)"""
     import torch.distributed as dist
 
-    from densereg_torch.parallel import make_mesh
-    from densereg_torch.utils.device import visible_devices
-
-    grouped = dist.is_available() and dist.is_initialized()
-    devices = (dist.get_world_size() if grouped
-               else len(visible_devices(args.device)))
-    if devices <= 1:
+    if not (args.mesh and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
         return None
+    from densereg_torch.parallel import make_mesh
+
     return make_mesh(devices=None if args.device == "cuda"
                      else [args.device])
+
+
+def local_group_size(args) -> int:
+    """How many processes ``main`` starts for ``args``: one a visible
+    device for ``train`` and ``test`` with ``--mesh`` where more than one
+    device is visible and no group is asked for (no
+    ``--coordinator_address``, no ``DENSEREG_NUM_PROCESSES``); else 0, the
+    command runs in this process."""
+    if (args.cmd not in ("train", "test") or not args.mesh
+            or args.coordinator_address is not None
+            or "DENSEREG_NUM_PROCESSES" in os.environ):
+        return 0
+    from densereg_torch.utils.device import visible_devices
+
+    n = len(visible_devices(args.device))
+    return n if n > 1 else 0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_local_group(argv, n: int, device: str) -> int:
+    """Run ``argv`` (a ``train`` or ``test`` command line) in ``n`` child
+    processes of one local group, rank ``i`` on the ``i``-th visible device:
+    each child is ``python -m densereg_torch.cli.main argv
+    --coordinator_address 127.0.0.1:<free port> --num_processes n
+    --process_id i``. Where ``OMP_NUM_THREADS`` is unset, each child gets
+    its share of the cores (idle OpenMP threads of several processes on the
+    same cores made a gloo step some 15x slower). Returns
+    :func:`run_children`'s exit code."""
+    coordinator = f"127.0.0.1:{_free_port()}"
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // n)))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    print(f"[densereg_torch] {argv[0]}: {n} visible {device} devices, one "
+          f"process a device (a local group at {coordinator})", flush=True)
+    return run_children(
+        [[sys.executable, "-m", "densereg_torch.cli.main", *argv,
+          "--coordinator_address", coordinator, "--num_processes", str(n),
+          "--process_id", str(i)] for i in range(n)], env)
+
+
+def run_children(commands, env, grace_s: float = 30.0) -> int:
+    """Start one child a command and wait for all of them. SIGTERM sent to
+    this process goes on to every child (a rank that stops alone leaves the
+    others waiting in the next collective). When a child fails, the others
+    are sent SIGTERM, and killed after ``grace_s`` seconds. Returns the
+    first nonzero exit code (128 + the signal's number for a child ended
+    by a signal), 0 when every child exits 0."""
+    procs = [subprocess.Popen(c, env=env) for c in commands]
+
+    def stop(signum=signal.SIGTERM, _frame=None):
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+
+    main_thread = threading.current_thread() is threading.main_thread()
+    previous = signal.signal(signal.SIGTERM, stop) if main_thread else None
+    code, deadline = 0, None
+    try:
+        while any(p.poll() is None for p in procs):
+            if code == 0:
+                failed = [p.returncode for p in procs
+                          if p.returncode not in (None, 0)]
+                if failed:
+                    code = failed[0]
+                    stop()
+                    deadline = time.monotonic() + grace_s
+            elif time.monotonic() > deadline:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+            time.sleep(0.05)
+    finally:   # an interrupt of this process: stop them too
+        stop()
+        for p in procs:
+            try:
+                p.wait(timeout=grace_s)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        if main_thread:
+            signal.signal(signal.SIGTERM, previous)
+    if code == 0:
+        code = next((p.returncode for p in procs if p.returncode), 0)
+    return 128 - code if code < 0 else code
 
 
 def cmd_train(args) -> int:
@@ -331,8 +444,6 @@ def cmd_serve(args) -> int:
     every serving program once, then stream length-framed depth-frame
     requests over a Unix socket (or TCP with ``--socket host:port``). See
     densereg_torch/serve.py for the wire protocol."""
-    import signal
-
     from densereg_torch.serve import Server
 
     pred = _load_predictor(args)
@@ -618,13 +729,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     device = getattr(args, "device", None)
     if device is not None:
         from densereg_torch.utils.device import default_device
 
         default_device(device)   # raises where there is no such device
-    grouped = getattr(args, "coordinator_address", None) is not None
+    n = local_group_size(args) if hasattr(args, "mesh") else 0
+    if n:
+        return launch_local_group(argv, n, device)
+    grouped = hasattr(args, "coordinator_address") and (
+        args.coordinator_address is not None
+        or "DENSEREG_NUM_PROCESSES" in os.environ)
     if grouped:
         # before anything touches the card: under NCCL each rank takes its
         # own card first

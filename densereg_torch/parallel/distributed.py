@@ -21,6 +21,20 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from densereg_torch.utils.device import visible_devices
+
+
+def local_card(process_id: int) -> torch.device:
+    """The card of rank ``process_id`` under NCCL: the ``process_id``-th of
+    ``visible_devices("cuda")``, so that ``DENSEREG_VISIBLE_DEVICES=2,3``
+    gives ranks 0 and 1 cards 2 and 3 (modulo the visible cards, for a
+    group of several hosts with as many ranks on each)."""
+    cards = visible_devices("cuda")
+    if not cards:
+        raise RuntimeError("local_card: no visible card (none present, or "
+                           "DENSEREG_VISIBLE_DEVICES filtered all out)")
+    return cards[process_id % len(cards)]
+
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
@@ -32,9 +46,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     Without a coordinator address and without ``DENSEREG_NUM_PROCESSES``
     it does nothing and returns False, so the same entry points run in one
     process and in many. ``backend`` defaults to ``"nccl"`` where CUDA is
-    available and ``"gloo"`` elsewhere; under NCCL each rank takes the card
-    of its rank modulo the cards it sees. Calling it again once the group
-    exists changes nothing.
+    available and ``"gloo"`` elsewhere; under NCCL each rank takes its card,
+    :func:`local_card`. Calling it again once the group exists changes
+    nothing.
     """
     env_np = os.environ.get("DENSEREG_NUM_PROCESSES")
     if coordinator_address is None and env_np is None:
@@ -55,7 +69,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl":
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
+        torch.cuda.set_device(local_card(process_id))
     dist.init_process_group(backend, init_method=address, world_size=world,
                             rank=process_id)
     return world > 1

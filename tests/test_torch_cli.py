@@ -119,6 +119,11 @@ def test_parser_matches_the_jax_parser():
     from densereg_torch.config import EvalConfig
 
     assert "use_pallas" not in EvalConfig.__dataclass_fields__
+    # one process a device on a machine of several (the JAX command line
+    # drives them from one process); the options themselves are the same
+    assert declared["train"]["mesh"] == declared["test"]["mesh"]
+    assert "one process a device" in declared["train"]["mesh"]
+    assert ours["train"]["mesh"] == theirs["train"]["mesh"]
 
 
 @pytest.fixture(scope="module")

@@ -20,7 +20,10 @@ standard as K3, on both of its load paths, and the lite int8 net on it and
 K3 equal to the CPU's. The subnormal scene (``decode_subnormal_scene``):
 K1 and K2 flush as the plain decode does. The serving daemon: no error
 reply, every request answered, K1 once a batch and K3 once a convolution
-of each int8 forward (``chip_smoke.phase_daemon``).
+of each int8 forward (``chip_smoke.phase_daemon``); the same for the
+port's daemon load probe (``densereg_torch.tools.serve_probe``), and its
+trace summary (``densereg_torch.tools.trace_summary``) names K1 and K3 in
+a trace of one int8 dispatch.
 """
 
 import pytest
@@ -663,3 +666,46 @@ def test_cli_on_card(cuda, tmp_path, monkeypatch):
     launches = phase_cli(init_variables(cfg, seed=4), cfg, cuda,
                          str(tmp_path))
     assert launches["fused_decode"] > 0 and launches["int8_gemm_requant"] > 0
+
+
+def _tool_net(desc):
+    from chip_smoke import SEED
+    from densereg_torch.models import from_flax, init_variables
+    from densereg_torch.tools.serve_probe import net_config
+
+    cfg = net_config(desc)
+    convs = sum(isinstance(m, layers.ConvBR) for m in from_flax(
+        init_variables(cfg, seed=SEED), cfg).modules())
+    return cfg, convs
+
+
+@pytest.mark.cuda
+def test_serve_probe_on_card(cuda):
+    """``serve_probe --net s1f8 --device cuda --quantize`` self-hosted at a
+    small size: no error reply, K1 once a daemon batch, K3 once a
+    convolution of each int8 forward, a 8-deep pipeline coalesced
+    (``chip_smoke.tools_serve_probe``)."""
+    from chip_smoke import tools_serve_probe
+
+    _, convs = _tool_net("s1f8")
+    rows, launches = tools_serve_probe("s1f8", True, convs, cuda,
+                                       max_batch=8, depths=((1, 4), (8, 32)))
+    assert [r["inflight"] for r in rows] == [1, 8]
+    assert launches["int8_gemm_requant"] == convs * launches["fused_decode"]
+
+
+@pytest.mark.cuda
+def test_trace_summary_on_card(cuda, tmp_path):
+    """``trace_summary`` on a ``torch.profiler`` trace of one dispatch of a
+    calibrated int8 ``Predictor``: the K1 row 1 call, the K3 rows one call
+    a convolution, no K2 or DW row, the rows summing to the trace's kernel
+    time (``chip_smoke.tools_trace``)."""
+    from chip_smoke import SEED, hand_frames, tools_latency_check, tools_trace
+
+    _, convs = _tool_net("s1f8")
+    gap, pred = tools_latency_check("s1f8", 8, True, cuda)
+    assert gap <= 0.02
+    frames, bbxs = hand_frames(np.random.default_rng(SEED), 8)
+    out = tools_trace(pred, frames, bbxs, str(tmp_path), convs)
+    assert out["calls_by_id"] == {"K1": 1, "K2": 0, "K3": convs, "DW": 0}
+    assert out["ms_by_id"]["K1"] > 0 and out["ms_by_id"]["K3"] > 0

@@ -102,6 +102,30 @@ def test_export_and_parallel_modules_are_checked(name):
     assert make_mesh(devices=["cpu"]).devices == (torch.device("cpu"),)
 
 
+@pytest.mark.parametrize("name", [
+    "compare_results", "trace_summary", "serve_probe", "latency_probe"])
+def test_tools_modules_are_checked(name):
+    """The port's tools lie where the import checks look, import without
+    touching a card (every CUDA query raises in the process) and print
+    their help; the probes default to the card."""
+    assert (PKG / "tools" / f"{name}.py").is_file()
+    code = (
+        "import sys, torch\n"
+        "def card(*a, **k):\n"
+        "    raise AssertionError('a card was touched')\n"
+        "for f in ('is_available', 'device_count', 'init', '_lazy_init',\n"
+        "          'current_device', 'get_device_name'):\n"
+        "    setattr(torch.cuda, f, card)\n"
+        f"from densereg_torch.tools import {name}\n"
+        f"sys.exit({name}.main(['--help']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("usage:")
+    if name.endswith("_probe"):
+        assert "--device {cuda,cpu}" in out.stdout
+
+
 def _top_level_roots(path: pathlib.Path):
     for node in ast.parse(path.read_text(), str(path)).body:
         if isinstance(node, ast.Import):
