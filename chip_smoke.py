@@ -21,7 +21,11 @@ Phases, each printed as one JSON line:
    batch 256, dense and implicit-GEMM, on that net's own operands; the
    depthwise int8 convolution at every distinct call of the calibrated
    (``q`` out) and the dynamic (bfloat16 ``f`` out) int8 ``um_v1_lite``
-   nets at batch 256, on their operands. K1 also on the
+   nets at batch 256, on their operands, with its launch plan, its share
+   of the bound and its registers and spills from the build; then at each
+   window size (1, 3, 5) at the largest of those calls, and on the ties of
+   its requantisation (``dw_tie_scene``: y at (n + 1/2) s_y and 1 to 3 ulps
+   around it, five s_y). K1 also on the
    subnormal scene (``decode_subnormal_scene``: Gaussian weights that
    underflow, which the decode flushes to zero as XLA does).
 4. ``model``: DenseRegNet s2/f128/J16 at 128x128 input (seeded random
@@ -158,6 +162,7 @@ import glob
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -828,6 +833,42 @@ def dw_library_call(x_q, w_packed, k, scale, bias, s_y, relu, emit_q, emit_f,
     return call
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+
+
+def ptxas_usage(log: str):
+    """``{entry: {registers, stack_bytes, spill_stores, spill_loads}}``
+    from ``nvcc -Xptxas -v`` output (entries by their mangled names)."""
+    usage, entry = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            usage[entry] = {}
+        elif entry is not None:
+            m = _PTXAS_STACK.search(line)
+            if m:
+                usage[entry].update(stack_bytes=int(m.group(1)),
+                                    spill_stores=int(m.group(2)),
+                                    spill_loads=int(m.group(3)))
+            m = _PTXAS_USED.search(line)
+            if m:
+                usage[entry]["registers"] = int(m.group(1))
+    return usage
+
+
+def dw_plan(key):
+    """The launch the wrapper plans for a depthwise call ``(b, h, w, C,
+    k, ...)``, as a dict."""
+    plan = dw.plan_launch(*key[:5])
+    return {"th": plan.th, "tw": plan.tw, "cb": plan.cb, "ipb": plan.ipb,
+            "threads": plan.threads, "blocks": plan.blocks,
+            "smem": plan.smem}
+
+
 def phase_kernel_dwconv(variables, net_cfg: NetConfig, device, b: int = 256,
                         iters: int = 20):
     """The depthwise kernel at every distinct call of the two int8
@@ -838,8 +879,14 @@ def phase_kernel_dwconv(variables, net_cfg: NetConfig, device, b: int = 256,
     version on the card: ``q`` bit-identical and ``f`` within 1 ulp. Times
     as K3's rows (``ms`` by events, ``device_ms`` by the profiler,
     ``host_us`` a wrapper call), the plain version's, the library
-    yardstick's and the bound. Returns the per-forward totals of each net,
-    ``{"calibrated": ..., "dynamic": ...}``."""
+    yardstick's and the bound, with the share of the bound the kernel
+    reaches. First a line of the registers and spills of each of the
+    kernel's instantiations, from the build's ``-Xptxas -v`` output. Returns
+    the per-forward totals of each net, ``{"calibrated": ...,
+    "dynamic": ...}``."""
+    log = _build.build_log("int8_dwconv")
+    emit({"phase": "kernel", "name": "int8_dwconv_requant",
+          "ptxas": None if log is None else ptxas_usage(log)})
     cfg = dataclasses.replace(net_cfg, compute_dtype="bfloat16")
     rng = np.random.default_rng(SEED + 3)
     dms = torch.from_numpy(seeded_depth(rng, b, *cfg.input_hw))
@@ -860,6 +907,8 @@ def phase_kernel_dwconv(variables, net_cfg: NetConfig, device, b: int = 256,
                            "bound_ms", "bytes_ms", "ops_ms")}
         total["bound_by"] = ("bytes" if total["bytes_ms"] >= total["ops_ms"]
                              else "operations")
+        total["share_of_bound"] = (None if total["device_ms"] is None else
+                                   total["bound_ms"] / total["device_ms"])
         total["calls_per_forward"] = sum(r["calls_per_forward"] for r in rows)
         total["calls_without_device_ms"] = sum(
             r["calls_per_forward"] for r in rows if r["device_ms"] is None)
@@ -884,7 +933,8 @@ def phase_kernel_dwconv(variables, net_cfg: NetConfig, device, b: int = 256,
 
 def dw_row(kind, key, args, kw, count, rng, iters):
     """One distinct depthwise call: the kernel against its plain version,
-    its times and its bound (an emitted row)."""
+    its plan, its times, its bound and the share of the bound it reaches
+    (an emitted row)."""
     bb, h, wd, c, k = key[:5]
     pitch_bytes = scramble_pitch(args[0], rng)
     run = lambda: dw.int8_dwconv_requant(*args, **kw)
@@ -902,7 +952,8 @@ def dw_row(kind, key, args, kw, count, rng, iters):
            "shape": {"b": bb, "h": h, "w": wd, "C": c, "k": k,
                      "relu": kw["relu"], "emit_q": kw["emit_q"],
                      "emit_f": kw["emit_f"], "f_dtype": key[-1]},
-           "vector_path": args[0].stride(2) % 16 == 0,
+           "plan": dw_plan(key),
+           "vector_path": dw.tensor_map_path(args[0]),
            "calls_per_forward": count,
            "pitch_bytes_scrambled": pitch_bytes, "q_mismatches": q_bad,
            "f_max_ulps": f_ulps, "max_abs_err": f_err,
@@ -914,6 +965,8 @@ def dw_row(kind, key, args, kw, count, rng, iters):
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes_ms": t_bytes, "ops_ms": t_ops}
+    row["share_of_bound"] = (None if row["device_ms"] is None else
+                             row["bound_ms"] / row["device_ms"])
     emit(row)
     check((q is None) == (not kw["emit_q"]) and (f is None) == (
         not kw["emit_f"]), f"int8_dwconv {kind} {key}: outputs "
@@ -922,7 +975,116 @@ def dw_row(kind, key, args, kw, count, rng, iters):
                       f"differ from the plain version")
     check(f is None or f_ulps <= 1,
           f"int8_dwconv {kind} {key}: f {f_ulps} ulps off")
+    # the nets' activations and the scenes' are pitched: every timed call
+    # is staged by the tensor memory accelerator (a refused map raises)
+    check(row["vector_path"], f"int8_dwconv {kind} {key}: not on the "
+                              f"tensor-map path")
     return row
+
+
+# s_y of the requantisation tie scene: act_scale's floor (max(amax, 1e-8) /
+# 127), 1 (y / s_y exact, so exact ties) and three others
+TIE_SCALES = (float(np.float32(1e-8) / np.float32(127)), 1.0, 0.01, 0.0371,
+              0.0033)
+TIE_ULPS = 3
+
+
+def requant_ties(s_y: float) -> np.ndarray:
+    """float32 y at (n + 1/2) * s_y (rounded to float32) and 1 to
+    ``TIE_ULPS`` ulps on either side of it, for n in -130..130: where the
+    depthwise kernel's reciprocal requantisation must give way to the
+    division."""
+    mid = ((np.arange(-130, 131) + 0.5) * np.float64(np.float32(s_y))
+           ).astype(np.float32)
+    out, lo, hi = [mid], mid, mid
+    for _ in range(TIE_ULPS):
+        lo = np.nextafter(lo, np.float32(-np.inf))
+        hi = np.nextafter(hi, np.float32(np.inf))
+        out += [lo, hi]
+    return np.concatenate(out)
+
+
+def dw_operands(rng, lead, c: int, k: int, device, s_y: float = 0.02):
+    """Seeded operands of one depthwise call: an NHWC int8 ``lead + (c,)``
+    whose pixels lie ``ceil(c / 16) * 16`` bytes apart (random bytes in the
+    pitch), random taps, O(1) outputs. Returns the wrapper's positional
+    arguments."""
+    cp = -(-c // 16) * 16
+    x = torch.from_numpy(rng.integers(-128, 128, tuple(lead) + (cp,)).astype(
+        np.int8)).to(device)[..., :c]
+    taps = torch.from_numpy(rng.integers(-127, 128, (k, k, 1, c)).astype(
+        np.int8))
+    scale = (rng.uniform(0.5, 1.5, c) / (127.0 * 127.0 * k)).astype(
+        np.float32)
+    bias = rng.uniform(-0.5, 0.5, c).astype(np.float32)
+    return (x, dw.pack_dw_weight(taps).to(device), k,
+            torch.from_numpy(scale).to(device),
+            torch.from_numpy(bias).to(device),
+            torch.tensor(s_y, dtype=torch.float32, device=device))
+
+
+def dw_tie_scene(rng, s_y: float, device, lead=(2, 4, 4)):
+    """The positional arguments of a k = 1 depthwise call whose every
+    output lands on a value of ``requant_ties(s_y)``: one channel a value,
+    the accumulators (random input, random taps) met by a scale of 0, so
+    that y is the channel's bias. Run it under each of ``TIE_KWS``."""
+    ys = requant_ties(s_y)
+    x, w, k, _, _, s = dw_operands(rng, lead, ys.size, 1, device, s_y)
+    scale = torch.zeros(ys.size, dtype=torch.float32, device=device)
+    return x, w, k, scale, torch.from_numpy(ys).to(device), s
+
+
+# the tie scene's outputs: q and float32 f without a ReLU, and q alone
+# after a ReLU (the kernel folds that ReLU into its requantisation)
+TIE_KWS = (dict(relu=False, emit_q=True, emit_f=True, f_dtype=torch.float32),
+           dict(relu=True, emit_q=True, emit_f=False, f_dtype=torch.float32))
+
+
+def phase_dw_scenes(device, iters: int = 20, b: int = 256):
+    """The depthwise kernel beyond the lite nets' calls: each window size
+    of ``dw.KERNEL_SIZES`` at the largest lite call (32x32, C = 256, batch
+    ``b``), ``q`` out and bfloat16 ``f`` out, as ``dw_row`` holds and times
+    them; then the tie scene at each of ``TIE_SCALES`` under each of
+    ``TIE_KWS``, ``q`` bit-identical to the plain version and to numpy's
+    rint of y / s_y, ``f`` within 1 ulp. Returns a summary for the kernels
+    line."""
+    rng = np.random.default_rng(SEED + 5)
+    windows = {}
+    for k in dw.KERNEL_SIZES:
+        args = dw_operands(rng, (b, 32, 32), 256, k, device)
+        for emit_q in (True, False):
+            kw = dict(relu=True, emit_q=emit_q, emit_f=not emit_q,
+                      f_dtype=torch.bfloat16)
+            key = (b, 32, 32, 256, k, True, emit_q, not emit_q, "bfloat16")
+            row = dw_row("windows", key, args, kw, 1, rng, iters)
+            windows[f"k{k}_{'q' if emit_q else 'f'}"] = {
+                n: row[n] for n in ("device_ms", "bound_ms",
+                                    "share_of_bound")}
+        del args
+    ties = 0
+    for s_y, kw in ((s, kw) for s in TIE_SCALES for kw in TIE_KWS):
+        args = dw_tie_scene(rng, s_y, device)
+        q, f = dw.int8_dwconv_requant(*args, **kw)
+        q_p, f_p = dw.int8_dwconv_requant_reference(*args, **kw)
+        torch.cuda.synchronize()
+        ys = requant_ties(s_y)
+        if kw["relu"]:
+            ys = np.maximum(ys, np.float32(0.0))
+        truth = np.clip(np.rint(ys / np.float32(s_y)), -127, 127)
+        q_bad = int((q != q_p).sum().item())
+        truth_bad = int((q_p.cpu().numpy() != truth.astype(np.int8)).sum())
+        f_ulps = None if f is None else ulps(f, f_p)
+        emit({"phase": "kernel", "name": "int8_dwconv_requant",
+              "scene": "requant_ties", "s_y": s_y, "relu": kw["relu"],
+              "outputs": q.numel(), "q_mismatches": q_bad,
+              "plain_vs_numpy_mismatches": truth_bad, "f_max_ulps": f_ulps})
+        check(q_bad == 0 and truth_bad == 0,
+              f"int8_dwconv ties at s_y {s_y}, relu {kw['relu']}: {q_bad} q "
+              f"off the plain version, {truth_bad} plain q off numpy's rint")
+        check(f_ulps is None or f_ulps <= 1,
+              f"int8_dwconv ties at s_y {s_y}: f {f_ulps} ulps off")
+        ties += q.numel()
+    return {"windows": windows, "tie_outputs": ties}
 
 
 # --------------------------------------------------------------------------
@@ -3673,6 +3835,7 @@ def main() -> int:
         trees["um_v1_lite"],
         dataclasses.replace(net_cfg, net_module="um_v1_lite"), "cuda")
     dw_total = dw_totals["calibrated"]
+    dw_scenes = phase_dw_scenes("cuda")
     phase_model(variables, net_cfg, "cuda")
     phase_model_int8(variables, net_cfg, "cuda")
     launches, preds, frames, bbxs = phase_serving(variables, "cuda", net_cfg)
@@ -3829,13 +3992,17 @@ def main() -> int:
         "calls_per_forward": dw_total["calls_per_forward"],
         "max_abs_err": max(t["max_abs_err"] for t in dw_totals.values()),
         "ms": dw_total["ms"], "device_ms": dw_total["device_ms"],
+        "share_of_bound": dw_total["share_of_bound"],
         "host_us": dw_total["host_us_mean"], "plain_ms": dw_total["plain_ms"],
         "bound_ms": dw_total["bound_ms"], "bound_by": dw_total["bound_by"],
         "library_ms": dw_total["library_ms"],
         # the dynamic int8 lite net's forward (bfloat16 f out of each call)
         "dynamic": {k: dw_totals["dynamic"][k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
-            "max_abs_err")}}]})
+            "share_of_bound", "max_abs_err")},
+        # each window size at the largest lite call, and the outputs of
+        # the requantisation tie scene (all bit-identical)
+        **dw_scenes}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ never served stale.
 compute them; ``--use_fast_math`` is deliberately absent. The decode
 kernels add ``-ftz=true`` (:data:`SOURCE_FLAGS`): they flush subnormal
 float32 values to zero, as XLA and their plain version do; K3 keeps IEEE
-subnormals, as its plain version does.
+subnormals, as its plain version does. The depthwise kernel is built with
+``-Xptxas -v``: the compiler's output (registers, spills, shared memory of
+each kernel) is kept beside the library (:func:`build_log`).
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 # flags of one source on top of NVCC_FLAGS
-SOURCE_FLAGS = {"fused_decode": ("-ftz=true",), "meanshift": ("-ftz=true",)}
+SOURCE_FLAGS = {"fused_decode": ("-ftz=true",), "meanshift": ("-ftz=true",),
+                "int8_dwconv": ("-Xptxas", "-v")}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -115,10 +118,18 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
         else:
+            paths[n].with_suffix(".log").write_text(log)
             os.replace(tmp, paths[n])  # atomic: concurrent builds agree
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return paths
+
+
+def build_log(name: str) -> Optional[str]:
+    """What nvcc printed when it built ``csrc/<name>.cu`` (None if this
+    checkout has not built it)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else None
 
 
 def load(name: str) -> ctypes.CDLL:

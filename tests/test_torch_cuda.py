@@ -16,8 +16,9 @@ rounded exponential against the CPU's float ``exp``, within 1 ulp. The int8 GEMM
 card, whose float64 product is exact; the same for its implicit-GEMM
 convolution entry against im2col and the plain GEMM; an int8 net on K3
 equal to the same net on the CPU. The depthwise int8 convolution: the same
-standard as K3, on both of its load paths, and the lite int8 net on it and
-K3 equal to the CPU's. The subnormal scene (``decode_subnormal_scene``):
+standard as K3, on both of its load paths and at the ties of its
+requantisation, and the lite int8 net on it and K3 equal to the CPU's. The
+subnormal scene (``decode_subnormal_scene``):
 K1 and K2 flush as the plain decode does. The serving daemon: no error
 reply, every request answered, K1 once a batch and K3 once a convolution
 of each int8 forward (``chip_smoke.phase_daemon``); the same for the
@@ -25,6 +26,8 @@ port's daemon load probe (``densereg_torch.tools.serve_probe``), and its
 trace summary (``densereg_torch.tools.trace_summary``) names K1 and K3 in
 a trace of one int8 dispatch.
 """
+
+import dataclasses
 
 import pytest
 
@@ -38,10 +41,14 @@ import numpy as np  # noqa: E402
 from chip_smoke import (  # noqa: E402
     DECODE_SHAPES,
     K1_PATH,
+    TIE_KWS,
+    TIE_SCALES,
     as_served,
     decode_edge_scene,
     decode_scene,
     decode_subnormal_scene,
+    dw_operands,
+    dw_tie_scene,
     nan_equal_err,
     plain_on_cpu,
     vote_edge_cases,
@@ -435,6 +442,35 @@ def test_int8_dwconv_other_windows(cuda, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_int8_dwconv_largest_lite_shape(cuda, k):
+    """Each window size at the largest depthwise call of the lite int8 net
+    (batch 256, 32x32, C = 256) and its plan: q alone, bfloat16 f alone
+    and both with float32 f, against the plain version."""
+    args = dw_operands(np.random.default_rng(20 + k), (256, 32, 32), 256, k,
+                       cuda)
+    for emit_q, emit_f, f_dtype in ((True, False, torch.bfloat16),
+                                    (False, True, torch.bfloat16),
+                                    (True, True, torch.float32)):
+        kw = dict(emit_q=emit_q, emit_f=emit_f, f_dtype=f_dtype)
+        _assert_matches_plain(dw.int8_dwconv_requant(*args, **kw),
+                              dw.int8_dwconv_requant_reference(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_y", TIE_SCALES)
+def test_int8_dwconv_requant_ties(cuda, s_y):
+    """y at (n + 1/2) * s_y and 1 to 3 ulps around it
+    (``chip_smoke.dw_tie_scene``): the kernel's reciprocal requantisation
+    gives the division's q, bit for bit, with and without a ReLU folded
+    into it."""
+    args = dw_tie_scene(np.random.default_rng(11), s_y, cuda)
+    for kw in TIE_KWS:
+        _assert_matches_plain(dw.int8_dwconv_requant(*args, **kw),
+                              dw.int8_dwconv_requant_reference(*args, **kw))
+
+
+@pytest.mark.cuda
 def test_int8_dwconv_refuses_what_it_cannot_take(cuda, monkeypatch):
     """A window it is not built for raises; a launch the C entry refuses
     (k = 7, with the wrapper's check lifted) raises and counts nothing;
@@ -451,6 +487,29 @@ def test_int8_dwconv_refuses_what_it_cannot_take(cuda, monkeypatch):
     assert dw.int8_dwconv_requant.launches == before
     with pytest.raises(ValueError, match="one device"):
         dw.int8_dwconv_requant(x, w.cpu(), 7, sc, b, sy)
+
+
+@pytest.mark.cuda
+def test_int8_dwconv_refuses_a_plan_short_of_its_layout(cuda, monkeypatch):
+    """The C entry holds the host's plan to the kernel's own layout
+    (``csrc/int8_dwconv.cu::smem_bytes``): a block one byte of shared
+    memory or one thread short of it is refused, nothing launched or
+    counted; the plan as made launches, so the two counts agree."""
+    rng = np.random.default_rng(5)
+    w, sc, b, sy = _dw_operands(rng, 32, 3, cuda)
+    x = _pitched(rng, (2, 9, 9), 32, cuda)
+    plan = dw.plan_launch(2, 9, 9, 32, 3)
+    for short in (dataclasses.replace(plan, smem=plan.smem - 1),
+                  dataclasses.replace(plan, threads=plan.threads - 1)):
+        monkeypatch.setattr(dw, "plan_launch", lambda *a, p=short: p)
+        before = dw.int8_dwconv_requant.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            dw.int8_dwconv_requant(x, w, 3, sc, b, sy)
+        assert dw.int8_dwconv_requant.launches == before
+    monkeypatch.setattr(dw, "plan_launch", lambda *a: plan)
+    _assert_matches_plain(dw.int8_dwconv_requant(x, w, 3, sc, b, sy),
+                          dw.int8_dwconv_requant_reference(x, w, 3, sc, b,
+                                                           sy))
 
 
 @pytest.mark.cuda

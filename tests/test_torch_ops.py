@@ -1,7 +1,10 @@
 """The port's slim op vocabulary (``densereg_torch/models/ops.py``) against
 ``densereg_tpu/models/ops.py`` on the same numpy inputs and weights, and the
 depthwise int8 convolution's plain version (``ops.int8_dwconv``) against
-XLA's grouped int8 convolution with K3's epilogue.
+XLA's grouped int8 convolution with K3's epilogue; what the depthwise
+kernel decides on the host (``plan_launch``), and a float32 emulation of
+its requantisation rule (``csrc/requant.cuh::requant_q_recip_step`` and
+its ReLU form) against the division it replaces.
 
 Tolerances: ``Deconv``, ``DepthwiseConv`` and ``Fc`` 1e-5 absolute on O(1)
 outputs (float32 sums in another order); the stateless ops exactly, except
@@ -24,11 +27,17 @@ import jax.numpy as jnp  # noqa: E402
 
 from densereg_tpu.models import ops as jops  # noqa: E402
 
+from chip_smoke import TIE_SCALES, requant_ties  # noqa: E402
 from densereg_torch.models import ops  # noqa: E402
 from densereg_torch.ops.int8_dwconv import (  # noqa: E402
+    MAX_THREADS,
+    SMS,
+    TILES,
     int8_dwconv_requant,
     int8_dwconv_requant_reference,
     pack_dw_weight,
+    plan_launch,
+    tensor_map_path,
 )
 
 
@@ -233,3 +242,142 @@ def test_dwconv_refuses_what_it_cannot_take():
         pack_dw_weight(torch.zeros((3, 3, 2, 20), dtype=torch.int8))
     q, _ = int8_dwconv_requant_reference(x, w, 3, s, b, 1.0)
     assert q.shape == x.shape and (q == 0).all()
+
+
+# (h, w, C): calls a forward of every depthwise convolution of the s2/f128
+# um_v1_lite int8 net, all k = 3 (41; chip_smoke.py counts them on the net)
+LITE_DW_CALLS = {(64, 64, 16): 1, (32, 32, 32): 2, (32, 32, 64): 4,
+                 (32, 32, 65): 2, (32, 32, 80): 4, (32, 32, 128): 4,
+                 (32, 32, 256): 2, (16, 16, 64): 6, (8, 8, 64): 6,
+                 (4, 4, 64): 6, (2, 2, 64): 4}
+ODD_DW_SHAPES = [(5, 6, 3), (7, 4, 3), (5, 6, 65), (7, 4, 65)]
+PLAN_CASES = ([(b, h, w, c, 3) for b in (1, 16, 256)
+               for h, w, c in LITE_DW_CALLS]
+              + [(b, h, w, c, k) for b in (1, 16, 256)
+                 for h, w, c in ODD_DW_SHAPES for k in (1, 3, 5)])
+
+
+@pytest.mark.parametrize("b,h,w,c,k", PLAN_CASES,
+                         ids=[f"b{b}-{h}x{w}-c{c}-k{k}"
+                              for b, h, w, c, k in PLAN_CASES])
+def test_dwconv_plan_covers_every_item_once(b, h, w, c, k):
+    """The depthwise kernel's launch plan: a tile it is built for, a
+    thread for each 2 rows x 4 columns x 4 channels, at most 1,024 threads
+    and 227 KB of shared memory a block; its blocks, decoded as the kernel
+    decodes them, cover every (image, pixel, 16-channel chunk) exactly once
+    and each covers some; at least one block an SM wherever the call has
+    at least 64 items for each."""
+    assert sum(LITE_DW_CALLS.values()) == 41
+    plan = plan_launch(b, h, w, c, k)
+    nchunks = -(-c // 16)
+    assert (plan.th, plan.tw) in TILES and plan.cb in (16, 32, 64)
+    assert plan.ipb & (plan.ipb - 1) == 0 and nchunks % (plan.cb // 16) == 0
+    assert plan.threads * 2 * 4 * 4 == plan.ipb * plan.th * plan.tw * plan.cb
+    assert plan.threads <= min(MAX_THREADS, 1024)
+    assert plan.smem <= 227 * 1024
+    count = np.zeros((b, h, w, nchunks), np.int32)
+    for bz in range(plan.image_groups):
+        for by in range(plan.groups):
+            for bx in range(plan.tiles_x * plan.tiles_y):
+                n0, y0, x0, k0 = plan.origin(bx, by, bz)
+                part = count[n0:n0 + plan.ipb, y0:y0 + plan.th,
+                             x0:x0 + plan.tw, k0:k0 + plan.cb // 16]
+                assert part.size > 0
+                part += 1
+    assert (count == 1).all()
+    if count.size >= SMS * 64:
+        assert plan.blocks >= SMS
+
+
+def _dw_layouts():
+    """(name, int8 NHWC tensor, whether the kernel stages it with the
+    tensor memory accelerator): the nets' pitched activations and views of
+    them against layouts with channels apart, pixels off 16 bytes or a
+    pointer off 16 bytes."""
+    pitched = torch.zeros((2, 5, 6, 80), dtype=torch.int8)[..., :65]
+    spread = torch.zeros((2, 5, 6, 16, 2), dtype=torch.int8)[..., 0]
+    base = torch.zeros(32 + 2 * 5 * 6 * 16, dtype=torch.int8)
+    shift = -base.data_ptr() % 16
+    return [("pitched", pitched, True),
+            ("pitched-transposed", pitched.permute(0, 2, 1, 3), True),
+            ("contiguous-c16", torch.zeros((2, 5, 6, 16), dtype=torch.int8),
+             True),
+            ("contiguous-c65", torch.zeros((2, 5, 6, 65), dtype=torch.int8),
+             False),
+            ("channels-2-bytes-apart", spread, False),
+            ("pointer-off-16", base[shift + 1:shift + 1 + 2 * 5 * 6 * 16]
+             .view(2, 5, 6, 16), False)]
+
+
+@pytest.mark.parametrize("name,x,staged", _dw_layouts(),
+                         ids=[c[0] for c in _dw_layouts()])
+def test_dwconv_tensor_map_path(name, x, staged):
+    """Which inputs the depthwise kernel stages with the tensor memory
+    accelerator (the C entry refuses a launch whose tensor map the driver
+    rejects, so no such input is staged another way unreported): whole
+    16-byte chunks of each pixel and 16-byte aligned pixels and pointer."""
+    assert tensor_map_path(x) is staged
+
+
+def _requant_q_reciprocal(y, s_y, relu=False):
+    """float32 emulation of ``csrc/requant.cuh``'s reciprocal rule with
+    ``recip_band``: ``requant_q_recip_step``, or with ``relu``
+    ``requant_q_recip_relu_step`` and ``relu_bytes`` (y before its ReLU).
+    Returns ``(q, divided)``, where ``divided`` marks the outputs in the
+    band, which the division decides (on y after the ReLU)."""
+    y, sy = np.asarray(y, np.float32), np.float32(s_y)
+    magic = np.float32(1.5 * 2 ** 23)
+    with np.errstate(all="ignore"):
+        inv = np.float32(1.0) / sy
+        normal = np.isfinite(inv) and abs(inv) >= np.finfo(np.float32).tiny
+        band = np.float32(0.5 - 2.0 ** -15) if normal else np.float32(-1.0)
+        r = y * inv
+        if relu:
+            s = np.clip(r * np.float32(2.0 ** -7), np.float32(0.0),
+                        np.float32(1.0))
+            t = np.where(np.isnan(s), np.float32(0.0), s) * np.float32(128.0)
+        else:
+            t = np.fmin(np.fmax(r, np.float32(-127.25)), np.float32(127.25))
+        m = t + magic
+        divided = ~(np.abs(t - (m - magic)) <= band)
+        yr = np.maximum(y, np.float32(0.0)) if relu else y
+        q_div = np.fmin(np.fmax(np.where(yr == 0, np.float32(0.0),
+                                         np.rint(yr / sy)),
+                                np.float32(-127)), np.float32(127))
+    q_fast = (m.view(np.int32) & 0xFF).astype(np.int16)
+    if relu:
+        q_fast = np.where(q_fast == 128, 127, q_fast)   # relu_bytes
+    q = np.where(divided, q_div.astype(np.int8),
+                 q_fast.astype(np.uint8).view(np.int8))
+    return q, divided
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["plain", "relu"])
+@pytest.mark.parametrize("s_y", TIE_SCALES)
+def test_requant_reciprocal_rule_matches_division(s_y, relu):
+    """The depthwise kernel's requantisation, ``fl(y * fl(1 / s_y))`` and
+    rint by an add outside a band of 2^-15 around each half-integer (after
+    a ReLU: a saturating multiply by 2^-7 for the clamp), equals
+    ``rint(y / s_y)`` (of ``max(y, 0)``) clipped to +-127 bit for bit: on y
+    at (n + 1/2) * s_y and 1 to 3 ulps on either side for n in -130..130,
+    on 10^5 seeded y, and on 0, -0, +-inf and the largest floats. Every tie
+    inside the clip range (and above 0 after a ReLU) takes the division; of
+    the seeded y, fewer than 1 in 1,000."""
+    ties = requant_ties(s_y)
+    rng = np.random.default_rng(int(s_y * 1e4) + 1)
+    spread = np.float32(s_y) * np.concatenate([
+        rng.uniform(-140.0, 140.0, 90_000),
+        rng.normal(0.0, 3.0, 10_000)]).astype(np.float32)
+    big = np.finfo(np.float32).max
+    edges = np.array([0.0, -0.0, np.inf, -np.inf, big, -big], np.float32)
+    y = np.concatenate([ties, spread.astype(np.float32), edges])
+    q, divided = _requant_q_reciprocal(y, s_y, relu)
+    with np.errstate(all="ignore"):
+        yr = np.maximum(y, np.float32(0.0)) if relu else y
+        want = np.clip(np.rint(yr / np.float32(s_y)), -127, 127).astype(
+            np.int8)
+    np.testing.assert_array_equal(q, want)
+    half = np.arange(-130, 131) + 0.5
+    inside = (np.abs(half) < 127) & ((half > 0) if relu else True)
+    assert divided[:261][inside].all()
+    assert divided[ties.size:ties.size + spread.size].mean() < 1e-3
