@@ -1,0 +1,15 @@
+"""Device time of the decode a dispatch, ms: the kernels launched inside
+the program's ``densereg.decode`` spans (the head-grid subsample, K1 and
+its glue), joined to their launches by correlation id, over the
+``densereg.dispatch`` spans of the traced window."""
+
+
+def read(run):
+    t = run.trace
+    if t is None:
+        return None
+    per = len(t.ranges("densereg.dispatch"))
+    kernels = t.kernels_launched_in("densereg.decode")
+    if not per or not kernels:
+        return None
+    return sum(k.get("dur", 0) for k in kernels) / 1e3 / per

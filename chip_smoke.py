@@ -51,7 +51,7 @@ Phases, each printed as one JSON line:
    the ``TrainConfig`` defaults (40 x 5) in float32 and bfloat16, 12 steps
    each, validating with K1 every 5 and keeping the best, resumed for 3
    more and served by ``Predictor.from_checkpoint``, with samples/s, the
-   step's split by CUDA events, the host's issue time beside the step's
+   step's split by its phase spans, the host's issue time beside the step's
    and the device's busy share (profiler), peak memory and K1's launches
    (``train``);
    a fixed batch overfit for 30 steps (``train_overfit``).
@@ -223,7 +223,7 @@ from densereg_torch.train.loop import (
     _tree_tags,
 )
 from densereg_torch.train.loop import test as test_driver
-from densereg_torch.utils.profiling import PhaseTimer
+from densereg_torch.utils.profiling import start_trace, stop_trace
 from densereg_torch.utils.tb import EventWriter, read_events
 from densereg_torch.wire import error_bound as wire_error_bound
 
@@ -1626,34 +1626,65 @@ def phase_train_card_vs_cpu(spec, net_cfg: NetConfig, device, sub: int = 2,
     return row
 
 
-def step_split(state, spec, cfg: NetConfig, tcfg: TrainConfig, device,
-               steps: int = 3):
-    """Device milliseconds of a training step's phases (CUDA events), the
-    mean over ``steps`` steps after one more: the feed (pinned copy and
-    crop), augmentation and targets, forward and backward, the optimizer.
-    Returns the split and the last batch."""
+# a training step's phase spans (utils.profiling) and their names in the
+# split
+STEP_PHASES = {"densereg.pipeline.feed": "feed_preprocess",
+               "densereg.train.augment_targets": "augment_targets",
+               "densereg.train.forward_backward": "forward_backward",
+               "densereg.train.optimizer": "optimizer"}
+
+
+def span_device_ms(path: str, names: dict) -> dict:
+    """Device milliseconds of the kernels launched inside the spans of a
+    Chrome trace, by ``names[span]``: each kernel, joined to its launch by
+    correlation id, charged to the innermost of those spans around the
+    launch."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e["name"] in names)
+    owner = {}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if (e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and corr is not None):
+            inside = [s for s in spans if s[0] <= e["ts"] < s[1]]
+            if inside:
+                owner[corr] = max(inside, key=lambda s: (s[0], -s[1]))[2]
+    out = dict.fromkeys(names.values(), 0.0)
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") == "kernel" and corr in owner:
+            out[names[owner[corr]]] += e["dur"] / 1e3
+    return out
+
+
+def step_split(state, spec, cfg: NetConfig, tcfg: TrainConfig, device):
+    """Device milliseconds of a training step's phases, from one traced
+    step after an untraced one: the kernels launched inside each phase's
+    span (:data:`STEP_PHASES`; the feed's pinned copy and crop,
+    augmentation and targets, the forward and backward outside them, the
+    optimizer). Returns the split and the last batch."""
     pipe = InputPipeline(spec, tcfg.batch_size, tcfg.sub_batch,
                          cfg.input_hw, seed=SEED + 5, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 5)
-    timer = PhaseTimer()
-    totals = {}
     try:
         it = iter(pipe)
-        for i in range(steps + 1):
-            torch.cuda.synchronize()
-            timer.start()
-            batch = next(it)
-            timer.mark("feed_preprocess")
-            train_step(state, batch, cfg, tcfg, gen, mark=timer.mark)
-            split = timer.split()
-            if i:
-                for k, v in split.items():
-                    totals[k] = totals.get(k, 0.0) + v / steps
+        train_step(state, next(it), cfg, tcfg, gen)
+        prof = start_trace(device)
+        batch = next(it)
+        train_step(state, batch, cfg, tcfg, gen)
+        with tempfile.TemporaryDirectory(prefix="densereg_split_") as root:
+            split = span_device_ms(
+                stop_trace(prof, os.path.join(root, "step.pt.trace.json"),
+                           device), STEP_PHASES)
     finally:
         pipe.close()
-    totals["step"] = sum(totals.values())
-    return totals, batch
+    split["step"] = sum(split.values())
+    return split, batch
 
 
 def step_profile(state, batch, cfg: NetConfig, tcfg: TrainConfig, device,
@@ -1722,7 +1753,7 @@ def phase_train_run(spec, val, net_cfg: NetConfig, dtype: str, root: str,
     augmentation on, dropout 0.5) for ``TRAIN_STEPS`` steps, validating
     every 5 and keeping the best; a resume from its last checkpoint for
     ``RESUME_STEPS`` more; the checkpoint served by
-    ``Predictor.from_checkpoint``; then a step's split by CUDA events and
+    ``Predictor.from_checkpoint``; then a step's split by its spans and
     its profile (host issue time against step time, device busy share)."""
     cfg = dataclasses.replace(net_cfg, compute_dtype=dtype)
     tcfg = TrainConfig(base_dir=os.path.join(root, dtype), validate_every=5,

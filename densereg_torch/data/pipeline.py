@@ -27,6 +27,7 @@ from densereg_torch.preprocess import (
     preprocess_batch_from_bbx,
     preprocess_batch_from_pose,
 )
+from densereg_torch.utils.profiling import span
 from densereg_torch.wire import check_wire, decode_dm_u16, encode_dm_u16
 
 
@@ -193,15 +194,18 @@ class InputPipeline:
         h, w = self.input_hw
         sub, b = self.sub_batch, self.local_batch
         while True:
-            item = self._q.get()
+            with span("densereg.pipeline.wait"):
+                item = self._q.get()
             if isinstance(item, Exception):
                 raise RuntimeError("input pipeline producer failed") from item
-            if self.host_preprocess:
-                dm, pose, cfgs, coms = _from_wire(item, self.wire_dtype,
-                                                  self.device)
-            else:
-                dm, pose, cfgs, coms = self._crop(
-                    *(_to_device(x, self.device) for x in item), self._cfg)
+            with span("densereg.pipeline.feed"):
+                if self.host_preprocess:
+                    dm, pose, cfgs, coms = _from_wire(item, self.wire_dtype,
+                                                      self.device)
+                else:
+                    dm, pose, cfgs, coms = self._crop(
+                        *(_to_device(x, self.device) for x in item),
+                        self._cfg)
             yield {"dm": dm.reshape(sub, b, h, w, 1),
                    "pose": pose.reshape(sub, b, -1),
                    "cfg": cfgs.reshape(sub, b, 6),

@@ -42,6 +42,7 @@ from densereg_torch.preprocess import (
     method2_resize,
     norm_dm,
 )
+from densereg_torch.utils.profiling import span
 
 
 class ServingModule(nn.Module):
@@ -62,22 +63,34 @@ class ServingModule(nn.Module):
         """Frames and boxes -> the net's input (normalized depth crops),
         ``cfgs`` and ``coms``."""
         in_h, in_w = self.net.cfg.input_hw
-        dms, cfgs = crop_from_bbx(frames, bbxs, self.cam, in_h, in_w)
-        coms = center_of_mass(dms, cfgs)
-        return norm_dm(dms, coms), cfgs, coms
+        with span("densereg.preprocess"):
+            dms, cfgs = crop_from_bbx(frames, bbxs, self.cam, in_h, in_w)
+            coms = center_of_mass(dms, cfgs)
+            return norm_dm(dms, coms), cfgs, coms
+
+    def _net(self, normed: torch.Tensor):
+        with span("densereg.net"):
+            return self.net(normed)
+
+    def _subsample(self, outs, normed: torch.Tensor):
+        """The last stack's ``hm, hm3, um`` (NHWC views) and the
+        head-grid depth."""
+        out_h, out_w = self.net.cfg.output_hw
+        return (outs["hm"][-1], outs["hm3"][-1], outs["um"][-1],
+                method2_resize(normed, out_h, out_w))
 
     def heads(self, frames: torch.Tensor, bbxs: torch.Tensor):
         """The decode's inputs: the last stack's ``hm, hm3, um`` (NHWC
         views), the head-grid depth, ``cfgs`` and ``coms``."""
-        out_h, out_w = self.net.cfg.output_hw
         normed, cfgs, coms = self.normed(frames, bbxs)
-        outs = self.net(normed)
-        tiny = method2_resize(normed, out_h, out_w)
-        return (outs["hm"][-1], outs["hm3"][-1], outs["um"][-1], tiny, cfgs,
-                coms)
+        return self._subsample(self._net(normed), normed) + (cfgs, coms)
 
     def forward(self, frames: torch.Tensor, bbxs: torch.Tensor):
-        return decode_poses(*self.heads(frames, bbxs), self.ecfg)["xyz"]
+        normed, cfgs, coms = self.normed(frames, bbxs)
+        outs = self._net(normed)
+        with span("densereg.decode"):
+            return decode_poses(*self._subsample(outs, normed), cfgs, coms,
+                                self.ecfg)["xyz"]
 
 
 class Predictor:
@@ -220,10 +233,11 @@ class Predictor:
         return _predict_on_mesh(self.mesh, self._replicas, frames, bbxs)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        with span("densereg.feed"):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
 
     def warmup(self, with_u16: bool = True) -> None:
         """Run every (bucket, dtype) path once, so that no request pays for
@@ -239,14 +253,17 @@ class Predictor:
     def _dispatch(self, frames: np.ndarray, bbxs: np.ndarray) -> torch.Tensor:
         """Pad one chunk to the smallest bucket that fits and enqueue it;
         returns the device result, with bucket rows, without waiting."""
-        b = frames.shape[0]
-        bucket = next(v for v in self.batch_buckets if v >= b)
-        pad = bucket - b
-        if pad:
-            frames = np.concatenate([frames, np.repeat(frames[-1:], pad, 0)])
-            bbxs = np.concatenate([bbxs, np.repeat(bbxs[-1:], pad, 0)])
-        return self._predict(self._to_device(frames),
-                             self._to_device(np.asarray(bbxs, np.float32)))
+        with span("densereg.dispatch"):
+            b = frames.shape[0]
+            bucket = next(v for v in self.batch_buckets if v >= b)
+            pad = bucket - b
+            if pad:
+                frames = np.concatenate([frames,
+                                         np.repeat(frames[-1:], pad, 0)])
+                bbxs = np.concatenate([bbxs, np.repeat(bbxs[-1:], pad, 0)])
+            return self._predict(self._to_device(frames),
+                                 self._to_device(np.asarray(bbxs,
+                                                            np.float32)))
 
     def __call__(self, frames_mm: np.ndarray, bbxs: np.ndarray) -> np.ndarray:
         """frames_mm: (b, H, W) or (b, H, W, 1) raw depth, mm;
@@ -256,23 +273,31 @@ class Predictor:
         Requests larger than ``max_batch`` run as a double-buffered chunk
         pipeline: chunk k+1 is padded and enqueued before chunk k's result
         is fetched."""
-        frames = np.asarray(frames_mm)
-        if frames.dtype != np.uint16:  # keep integer depth in native width
-            frames = frames.astype(np.float32, copy=False)
-        if frames.ndim == 3:
-            frames = frames[..., None]
-        b = frames.shape[0]
-        if b == 0:
-            return np.zeros((0, 3 * self.net_cfg.num_joint), np.float32)
-        out, pending = [], None
-        for i in range(0, b, self.max_batch):
-            chunk = frames[i:i + self.max_batch]
-            dev = self._dispatch(chunk, bbxs[i:i + self.max_batch])
-            if pending is not None:
-                out.append(pending[0][:pending[1]].cpu().numpy())
-            pending = (dev, len(chunk))
-        out.append(pending[0][:pending[1]].cpu().numpy())
-        return out[0] if len(out) == 1 else np.concatenate(out)
+        with span("densereg.predict"):
+            frames = np.asarray(frames_mm)
+            if frames.dtype != np.uint16:  # keep integer depth in native width
+                frames = frames.astype(np.float32, copy=False)
+            if frames.ndim == 3:
+                frames = frames[..., None]
+            b = frames.shape[0]
+            if b == 0:
+                return np.zeros((0, 3 * self.net_cfg.num_joint), np.float32)
+            out, pending = [], None
+            for i in range(0, b, self.max_batch):
+                chunk = frames[i:i + self.max_batch]
+                dev = self._dispatch(chunk, bbxs[i:i + self.max_batch])
+                if pending is not None:
+                    out.append(_fetch(*pending))
+                pending = (dev, len(chunk))
+            out.append(_fetch(*pending))
+            return out[0] if len(out) == 1 else np.concatenate(out)
+
+
+def _fetch(dev: torch.Tensor, n: int) -> np.ndarray:
+    """A dispatch's first ``n`` rows on the host: the host waits for the
+    device here."""
+    with span("densereg.fetch"):
+        return dev[:n].cpu().numpy()
 
 
 def _predict_on_mesh(mesh, replicas, frames: torch.Tensor,

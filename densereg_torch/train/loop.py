@@ -19,7 +19,7 @@ images at each validation (``debug_level >= 1``), parameter and gradient
 histograms under the Flax key paths every ``histogram_every`` steps, and
 debug images of the current batch (``debug_level >= 2``); with
 ``TrainConfig.profile_dir``, a ``torch.profiler`` Chrome trace of a few
-steps.
+steps, each a ``densereg.train.step`` span (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -54,7 +54,12 @@ from densereg_torch.train.checkpoint import CheckpointManager, restore_net
 from densereg_torch.train.state import TrainState, create_train_state
 from densereg_torch.train.step import train_step
 from densereg_torch.utils.logging import MetricLogger, TrainLogWriter
-from densereg_torch.utils.profiling import StepTimer
+from densereg_torch.utils.profiling import (
+    StepTimer,
+    span,
+    start_trace,
+    stop_trace,
+)
 from densereg_torch.utils.tb import EventWriter
 
 
@@ -268,62 +273,69 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
     try:
         for step in range(state.step, max_steps):
             if tcfg.profile_dir and step == tcfg.profile_start:
-                prof = _start_profile(device)
+                prof = start_trace(device)
             if (prof is not None
                     and step == tcfg.profile_start + tcfg.profile_steps):
-                _stop_profile(prof, tcfg, device)
+                stop_trace(prof, _trace_path(tcfg), device)
                 prof = None
-            sync = (step % tcfg.log_every == 0
-                    or step % tcfg.summary_every == 0
-                    or step % tcfg.checkpoint_every == 0
-                    or step + 1 == max_steps)
-            with timer:     # the feed included: it runs on the same stream
-                batch = next(data_iter)
-                histograms = (lead and tcfg.histogram_every > 0
-                              and step % tcfg.histogram_every == 0)
-                metrics = train_step(state, batch, net_cfg, tcfg, generator,
-                                     with_grads=histograms, group=group)
-                grads = metrics.pop("grads", None)
-                _flush_guard()
-                if sync:
-                    loss = float(metrics["loss"])
-                    _guard(step, loss)
-                else:
-                    loss = None
-                    pending = _defer(step, metrics["loss"])
+            # opened after the trace's start and stop, so that the step
+            # spans never widen the traced window
+            with span("densereg.train.step"):
+                sync = (step % tcfg.log_every == 0
+                        or step % tcfg.summary_every == 0
+                        or step % tcfg.checkpoint_every == 0
+                        or step + 1 == max_steps)
+                with timer:     # the feed included: it runs on the same stream
+                    batch = next(data_iter)
+                    histograms = (lead and tcfg.histogram_every > 0
+                                  and step % tcfg.histogram_every == 0)
+                    metrics = train_step(state, batch, net_cfg, tcfg,
+                                         generator, with_grads=histograms,
+                                         group=group)
+                    grads = metrics.pop("grads", None)
+                    _flush_guard()
+                    if sync:
+                        loss = float(metrics["loss"])
+                        _guard(step, loss)
+                    else:
+                        loss = None
+                        pending = _defer(step, metrics["loss"])
 
-            if step % tcfg.log_every == 0:
-                log.log_step(step, max_steps, loss, timer.last,
-                             timer.last / samples_per_step)
-            if step % tcfg.summary_every == 0:
-                lr = schedule(step)
-                scalars = {k: float(metrics[k]) for k in sorted(metrics)}
-                metrics_log.log(step, learning_rate=lr,
-                                sec_per_batch=timer.last, **scalars)
-                if events is not None:
-                    events.add_scalars(dict(scalars, learning_rate=lr), step)
-                if debug_fn is not None:
-                    _train_debug_images(debug_fn, state, batch, events, step)
-            if histograms:
-                _write_histograms(events, state.net, grads, step)
-            if val_iter is not None and step % tcfg.validate_every == 0:
-                _validate(infer_fn, state, next(val_iter), log, step, log_fn,
-                          image_writer, spec.name, events)
-                if best_tracker is not None:
-                    best_tracker.maybe_update(infer_fn, state, log_fn,
-                                              pre_save=_flush_guard,
-                                              generators=generators)
-            if (step % tcfg.checkpoint_every == 0 or step + 1 == max_steps
-                    or preempted["flag"]):
-                _flush_guard()
-                if lead:
-                    ckpt.save(state, generators=generators)
-            if preempted["flag"]:
-                log.write(f"[train] SIGTERM: checkpointed step {state.step} "
-                          f"and stopping")
-                log_fn(f"[train] preempted at step {step}; resume with "
-                       f"restore_step='auto'")
-                break
+                if step % tcfg.log_every == 0:
+                    log.log_step(step, max_steps, loss, timer.last,
+                                 timer.last / samples_per_step)
+                if step % tcfg.summary_every == 0:
+                    lr = schedule(step)
+                    scalars = {k: float(metrics[k])
+                               for k in sorted(metrics)}
+                    metrics_log.log(step, learning_rate=lr,
+                                    sec_per_batch=timer.last, **scalars)
+                    if events is not None:
+                        events.add_scalars(dict(scalars, learning_rate=lr),
+                                           step)
+                    if debug_fn is not None:
+                        _train_debug_images(debug_fn, state, batch, events,
+                                            step)
+                if histograms:
+                    _write_histograms(events, state.net, grads, step)
+                if val_iter is not None and step % tcfg.validate_every == 0:
+                    _validate(infer_fn, state, next(val_iter), log, step,
+                              log_fn, image_writer, spec.name, events)
+                    if best_tracker is not None:
+                        best_tracker.maybe_update(infer_fn, state, log_fn,
+                                                  pre_save=_flush_guard,
+                                                  generators=generators)
+                if (step % tcfg.checkpoint_every == 0
+                        or step + 1 == max_steps or preempted["flag"]):
+                    _flush_guard()
+                    if lead:
+                        ckpt.save(state, generators=generators)
+                if preempted["flag"]:
+                    log.write(f"[train] SIGTERM: checkpointed step "
+                              f"{state.step} and stopping")
+                    log_fn(f"[train] preempted at step {step}; resume with "
+                           f"restore_step='auto'")
+                    break
         _flush_guard()
         return state
     except (KeyboardInterrupt, FloatingPointError):
@@ -342,7 +354,7 @@ def train(spec: DatasetSpec, net_cfg: NetConfig, tcfg: TrainConfig,
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)
         if prof is not None:
-            _stop_profile(prof, tcfg, device)
+            stop_trace(prof, _trace_path(tcfg), device)
         pipeline.close()
         log.close()
         metrics_log.close()
@@ -638,29 +650,9 @@ def _train_debug_images(debug_fn, state: TrainState, batch, events, step: int,
     events.flush()
 
 
-def _start_profile(device: torch.device):
-    """Start ``torch.profiler`` on the host and, on a CUDA device, the
-    device (``TrainConfig.profile_dir``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    prof.start()
-    return prof
-
-
-def _stop_profile(prof, tcfg: TrainConfig, device: torch.device) -> str:
-    """Stop the trace once the device is done and write it as a Chrome
-    trace into ``tcfg.profile_dir``; returns its path."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    prof.stop()
-    os.makedirs(tcfg.profile_dir, exist_ok=True)
-    path = os.path.join(
+def _trace_path(tcfg: TrainConfig) -> str:
+    """Where ``tcfg.profile_dir``'s trace of its steps is written."""
+    return os.path.join(
         tcfg.profile_dir,
         f"train_steps_{tcfg.profile_start}-"
         f"{tcfg.profile_start + tcfg.profile_steps}.pt.trace.json")
-    prof.export_chrome_trace(path)
-    return path

@@ -27,6 +27,7 @@ from densereg_torch.models.layers import BatchRenorm
 from densereg_torch.preprocess import norm_dm
 from densereg_torch.train import losses as loss_lib
 from densereg_torch.train.lr import staircase_exponential_decay
+from densereg_torch.utils.profiling import span
 
 
 class ClippedAdam(torch.optim.Optimizer):
@@ -182,8 +183,7 @@ def remat_forward(net: DenseRegNet, normed: torch.Tensor, r_max, d_max,
 
 def loss_fn(net: DenseRegNet, batch: Dict[str, torch.Tensor],
             net_cfg: NetConfig, tcfg: TrainConfig, renorm_t,
-            generator: Optional[torch.Generator] = None,
-            mark: Optional[Callable[[str], None]] = None, group=None):
+            generator: Optional[torch.Generator] = None, group=None):
     """Total training loss of one micro-batch.
 
     ``batch``: ``dm (b, H, W, 1)`` raw mm, ``pose (b, 3j)``, ``cfg (b, 6)``,
@@ -191,21 +191,21 @@ def loss_fn(net: DenseRegNet, batch: Dict[str, torch.Tensor],
     ``generator`` draws the augmentation and the dropout masks. Data terms
     are ``sum(x^2)/2`` (``sum|x|`` for ``l1``) over every stack's heads,
     summed, never averaged; the weight decay is part of every micro loss.
-    ``mark``, when given, is called with ``"augment_targets"`` once the
-    targets are made. With ``group`` (data parallelism) the batch is this
+    The augmentation and the targets are the span
+    ``densereg.train.augment_targets``. With ``group`` (data parallelism) the batch is this
     rank's slice and the weight decay is divided by the group's size, so
     that the ranks' losses sum to the global batch's, as the JAX loss does
     under ``axis_name``. Returns ``(total, metrics)``, metrics detached.
     """
     dms, poses = batch["dm"], batch["pose"]
     cfgs, coms = batch["cfg"], batch["com"]
-    if tcfg.augment:
-        dms, poses = augment.augment_batch(dms, poses, cfgs, coms, generator)
     out_h, out_w = net_cfg.output_hw
-    normed = norm_dm(dms, coms)
-    gt = targets.synthesize(poses, cfgs, coms, normed, out_h, out_w)
-    if mark is not None:
-        mark("augment_targets")
+    with span("densereg.train.augment_targets"):
+        if tcfg.augment:
+            dms, poses = augment.augment_batch(dms, poses, cfgs, coms,
+                                               generator)
+        normed = norm_dm(dms, coms)
+        gt = targets.synthesize(poses, cfgs, coms, normed, out_h, out_w)
 
     r_max, d_max = renorm_clip_schedule(renorm_t)
     if net_cfg.remat:

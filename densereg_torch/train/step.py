@@ -10,7 +10,7 @@ frames and poses, the crop included.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -18,6 +18,7 @@ import torch
 from densereg_torch.config import NetConfig, TrainConfig
 from densereg_torch.preprocess import preprocess_batch_from_pose
 from densereg_torch.train.state import TrainState, loss_fn
+from densereg_torch.utils.profiling import span
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -32,18 +33,23 @@ def all_reduce_sum_(tensors, group) -> None:
     few MB)."""
     import torch.distributed as dist
 
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    torch._foreach_copy_(tensors, [v.view_as(t) for v, t in zip(
-        flat.split([t.numel() for t in tensors]), tensors)])
+    with span("densereg.train.all_reduce"):
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        torch._foreach_copy_(tensors, [v.view_as(t) for v, t in zip(
+            flat.split([t.numel() for t in tensors]), tensors)])
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                net_cfg: NetConfig, tcfg: TrainConfig,
                generator: Optional[torch.Generator] = None,
-               with_grads: bool = False,
-               mark: Optional[Callable[[str], None]] = None, group=None):
+               with_grads: bool = False, group=None):
     """One optimizer step, in place on ``state``.
+
+    Its phases are spans (``utils.profiling``): each micro-batch's
+    ``loss_fn`` call and backward pass ``densereg.train.forward_backward``
+    (``loss_fn``'s augmentation and targets ``augment_targets`` inside
+    it), the update ``densereg.train.optimizer``.
 
     Args:
       batch: ``dm``, ``pose``, ``cfg``, ``com`` with leading ``(sub_batch,
@@ -51,9 +57,6 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
       generator: draws augmentation and dropout (on the net's device).
       with_grads: also return the averaged gradient (before the clip) as
         ``metrics["grads"]``, keyed like the net's parameters.
-      mark: called with a phase name as each phase's work is issued:
-        ``"augment_targets"`` and ``"forward_backward"`` once a micro step,
-        ``"optimizer"`` after the update.
       group: a ``torch.distributed`` process group for data parallelism
         (``densereg_tpu/train/step.py``'s explicit path): ``batch`` is this
         rank's slice of the global batch, the net's renorm is synchronized
@@ -73,16 +76,15 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     t = state.renorm_t
     for i in range(sub):
         mb = {k: v[i] for k, v in batch.items()}
-        loss, metrics = loss_fn(net, mb, net_cfg, tcfg, t, generator, mark,
-                                group)
-        loss.backward()
-        if mark is not None:
-            mark("forward_backward")
+        with span("densereg.train.forward_backward"):
+            loss, metrics = loss_fn(net, mb, net_cfg, tcfg, t, generator,
+                                    group)
+            loss.backward()
         per_micro.append(metrics)
         t = t + net_cfg.renorm_t_delta
     named = [(k, p) for k, p in net.named_parameters()]
     params = [p for _, p in named]
-    with torch.no_grad():
+    with torch.no_grad(), span("densereg.train.optimizer"):
         grads = [p.grad for p in params]
         if group is not None:
             all_reduce_sum_(grads, group)
@@ -97,8 +99,6 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
             for k, p in named:
                 e = state.ema[k]
                 e.copy_(e * d + p * (1.0 - d))
-    if mark is not None:
-        mark("optimizer")
     state.step += 1
     state.renorm_t = t
     names = list(per_micro[0])

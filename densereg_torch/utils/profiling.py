@@ -1,10 +1,50 @@
-"""Step timing and traces.
+"""Step timing, traces and the program's spans.
 
 :class:`StepTimer` is the JAX package's wall-clock step timer
 (``densereg_tpu/utils/profiling.py``); on a CUDA device it synchronises
 the device before it reads the clock, so a step's time includes its
-device work. :class:`PhaseTimer` splits steps into phases by CUDA events.
-:func:`trace_context` traces a block with ``torch.profiler``.
+device work. :func:`start_trace` and :func:`stop_trace` start and write a
+``torch.profiler`` trace (the host, and the card on CUDA);
+:func:`trace_context` traces a block with them, and the training loop
+traces ``TrainConfig.profile_dir``'s steps with them.
+
+:func:`span` opens a named range in that trace, on the thread that
+launches the work, so a range shares the clock of the kernels and copies
+it issues. Spans nest by time on one thread: a dispatch's spans sit inside
+its request's span, and that nesting is what ties them together. No span
+sits inside the network's layers (a training step issues tens of
+thousands of kernels). The spans:
+
+span (once per)                      where
+``densereg.predict`` (request)       ``serving.Predictor.__call__``
+``densereg.dispatch`` (chunk)        ``Predictor._dispatch``: pad, feed,
+                                     enqueue
+``densereg.feed`` (tensor fed)       ``Predictor._to_device``: the pinned host
+                                     copy and the copy's enqueue
+``densereg.preprocess`` (chunk)      ``ServingModule.normed``: crop, center of
+                                     mass, ``norm_dm``
+``densereg.net`` (chunk)             the network's forward in ``ServingModule``
+``densereg.decode`` (chunk)          the head-grid subsample and
+                                     ``decode_poses``
+``densereg.fetch`` (chunk)           a chunk's copy to the host in
+                                     ``Predictor.__call__``
+``densereg.train.step`` (step)       one iteration of ``train.loop.train``'s
+                                     loop, inside the profiler's start and stop
+``densereg.pipeline.wait`` (batch)   ``InputPipeline``'s wait on its producers
+``densereg.pipeline.feed`` (batch)   ``InputPipeline``'s copy to the device and
+                                     crop (or wire decode)
+``densereg.train.augment_targets``   ``train.state.loss_fn``: augmentation,
+  (micro-batch)                      ``norm_dm``, ``targets.synthesize``
+``densereg.train.forward_backward``  a micro-batch's ``loss_fn`` call and its
+  (micro-batch)                      ``backward()``; holds augment_targets
+``densereg.train.all_reduce`` (call) ``train.step.all_reduce_sum_``
+``densereg.train.optimizer`` (step)  ``train_step``'s update: the division, the
+                                     norms, ``ClippedAdam.step``, the EMA
+
+With no profiler recording on the calling thread, or while
+``torch.export`` or ``torch.compile`` traces, a span is one shared null
+context: its cost is two flag checks, and a traced program holds no
+profiler op.
 """
 
 from __future__ import annotations
@@ -12,10 +52,21 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Optional
 
 import torch
+from torch.autograd.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler records on this
+    thread; the shared null context otherwise."""
+    if torch.compiler.is_compiling() or not _recording():
+        return _OFF
+    return record_function(name)
 
 
 def _sync(device: Optional[torch.device]) -> None:
@@ -54,36 +105,27 @@ class StepTimer:
         return self.total / n if n > 0 else float("nan")
 
 
-class PhaseTimer:
-    """Device milliseconds of the phases of the current CUDA stream's work.
+def start_trace(device: torch.device):
+    """Start ``torch.profiler`` on the host and, on a CUDA device, the
+    device; returns the profiler for :func:`stop_trace`."""
+    from torch.profiler import ProfilerActivity, profile
 
-    ``start()`` records an event; each ``mark(name)`` records another and
-    charges the time since the previous event to ``name``; ``split()``
-    synchronises and returns the milliseconds charged to each name since
-    ``start()``. (On a stream the host cannot keep fed, an interval also
-    counts the device's wait for the host.)"""
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
 
-    def __init__(self):
-        self._events: List[Tuple[str, torch.cuda.Event]] = []
 
-    def _record(self, name: str) -> None:
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        self._events.append((name, event))
-
-    def start(self) -> None:
-        self._events = []
-        self._record("")
-
-    def mark(self, name: str) -> None:
-        self._record(name)
-
-    def split(self) -> Dict[str, float]:
-        torch.cuda.synchronize()
-        out: Dict[str, float] = defaultdict(float)
-        for (_, a), (name, b) in zip(self._events, self._events[1:]):
-            out[name] += a.elapsed_time(b)
-        return dict(out)
+def stop_trace(prof, path: str, device: torch.device) -> str:
+    """Stop the trace once the device is done and write it to ``path`` as
+    a Chrome trace (its directory made); returns ``path``."""
+    _sync(device)
+    prof.stop()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    prof.export_chrome_trace(path)
+    return path
 
 
 @contextlib.contextmanager
@@ -95,17 +137,10 @@ def trace_context(logdir: Optional[str]):
     if not logdir:
         yield
         return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        try:
-            yield
-        finally:
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
-    os.makedirs(logdir, exist_ok=True)
-    prof.export_chrome_trace(
-        os.path.join(logdir, f"trace_{time.time_ns()}.pt.trace.json"))
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    prof = start_trace(device)
+    try:
+        yield
+    finally:
+        stop_trace(prof, os.path.join(
+            logdir, f"trace_{time.time_ns()}.pt.trace.json"), device)
