@@ -1674,13 +1674,13 @@ def step_split(state, spec, cfg: NetConfig, tcfg: TrainConfig, device):
     try:
         it = iter(pipe)
         train_step(state, next(it), cfg, tcfg, gen)
-        prof = start_trace(device)
+        prof = start_trace(torch.device(device))
         batch = next(it)
         train_step(state, batch, cfg, tcfg, gen)
         with tempfile.TemporaryDirectory(prefix="densereg_split_") as root:
             split = span_device_ms(
                 stop_trace(prof, os.path.join(root, "step.pt.trace.json"),
-                           device), STEP_PHASES)
+                           torch.device(device)), STEP_PHASES)
     finally:
         pipe.close()
     split["step"] = sum(split.values())

@@ -154,6 +154,11 @@ class BatchRenorm(nn.Module):
     with ``r`` and ``d`` from the moving statistics as they stand before the
     call (``r = 1``, ``d = 0`` without ``r_max``); the moving statistics then
     move once, ``decay * moving + (1 - decay) * batch``, outside autograd.
+    ``r_max`` and ``d_max`` are floats, or each a ``(low, high)`` pair of
+    0-d float32 tensors on the input's device: the clip ranges
+    ``[1/r_max, r_max]`` and ``[-d_max, d_max]`` rounded to float32 on the
+    host (``train.state.renorm_clip_bounds``), the same values the floats
+    clamp at, which a CUDA graph reads anew at each replay.
 
     ``replay``, when set to a ``(mean, var)`` pair (the moving statistics
     before the first pass), makes a training forward the recompute of a
@@ -199,9 +204,12 @@ class BatchRenorm(nn.Module):
             if r_max is not None:
                 with torch.no_grad():
                     mov_std = torch.sqrt(mov_var + self.epsilon)
-                    r = torch.clamp(std / mov_std, 1.0 / r_max, r_max)
-                    d = torch.clamp((mean - mov_mean) / mov_std, -d_max,
-                                    d_max)
+                    r_lo, r_hi = (r_max if isinstance(r_max, tuple)
+                                  else (1.0 / r_max, r_max))
+                    d_lo, d_hi = (d_max if isinstance(d_max, tuple)
+                                  else (-d_max, d_max))
+                    r = torch.clamp(std / mov_std, r_lo, r_hi)
+                    d = torch.clamp((mean - mov_mean) / mov_std, d_lo, d_hi)
                 y = y * view(r) + view(d)
             if self.replay is None:
                 with torch.no_grad():

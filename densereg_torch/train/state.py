@@ -101,8 +101,10 @@ def make_optimizer(params, tcfg: TrainConfig,
 class TrainState:
     """The net (in training mode), its optimizer, the update count, the
     renorm schedule clock (a 0-d float32 CPU tensor, advanced in float32
-    as the JAX package does) and the EMA of the parameters (None unless
-    ``TrainConfig.ema_decay`` is set)."""
+    as the JAX package does), the EMA of the parameters (None unless
+    ``TrainConfig.ema_decay`` is set) and the CUDA graphs of the net's
+    micro-batches (``train.step.MicroBatchGraph``, by shapes), which live
+    as long as the state."""
 
     net: DenseRegNet
     optimizer: ClippedAdam
@@ -110,6 +112,7 @@ class TrainState:
     renorm_t: torch.Tensor = dataclasses.field(
         default_factory=lambda: torch.zeros((), dtype=torch.float32))
     ema: Optional[Dict[str, torch.Tensor]] = None
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False)
 
 
 def create_train_state(net_cfg: NetConfig, tcfg: TrainConfig,
@@ -181,22 +184,22 @@ def remat_forward(net: DenseRegNet, normed: torch.Tensor, r_max, d_max,
     return checkpoint(run, normed, use_reentrant=False)
 
 
-def loss_fn(net: DenseRegNet, batch: Dict[str, torch.Tensor],
-            net_cfg: NetConfig, tcfg: TrainConfig, renorm_t,
-            generator: Optional[torch.Generator] = None, group=None):
-    """Total training loss of one micro-batch.
+def renorm_clip_bounds(renorm_t) -> np.ndarray:
+    """Batch renorm's clip ranges at the clock ``renorm_t`` as float32
+    ``[1/r_max, r_max, -d_max, d_max]``: ``renorm_clip_schedule``'s values
+    rounded as ``BatchRenorm`` rounds the float bounds it clamps at, for
+    its tensor form (``(low, high)`` pairs)."""
+    r_max, d_max = renorm_clip_schedule(renorm_t)
+    return np.array([1.0 / r_max, r_max, -d_max, d_max], np.float32)
 
-    ``batch``: ``dm (b, H, W, 1)`` raw mm, ``pose (b, 3j)``, ``cfg (b, 6)``,
-    ``com (b, 3)``. With ``tcfg.augment`` the batch is augmented first;
-    ``generator`` draws the augmentation and the dropout masks. Data terms
-    are ``sum(x^2)/2`` (``sum|x|`` for ``l1``) over every stack's heads,
-    summed, never averaged; the weight decay is part of every micro loss.
-    The augmentation and the targets are the span
-    ``densereg.train.augment_targets``. With ``group`` (data parallelism) the batch is this
-    rank's slice and the weight decay is divided by the group's size, so
-    that the ranks' losses sum to the global batch's, as the JAX loss does
-    under ``axis_name``. Returns ``(total, metrics)``, metrics detached.
-    """
+
+def augment_targets(batch: Dict[str, torch.Tensor], net_cfg: NetConfig,
+                    tcfg: TrainConfig,
+                    generator: Optional[torch.Generator] = None):
+    """The part of :func:`loss_fn` before the net, in the span
+    ``densereg.train.augment_targets``: the augmentation (with
+    ``tcfg.augment``, drawn from ``generator``), ``norm_dm`` and
+    ``targets.synthesize``. Returns ``(normed, gt)``."""
     dms, poses = batch["dm"], batch["pose"]
     cfgs, coms = batch["cfg"], batch["com"]
     out_h, out_w = net_cfg.output_hw
@@ -206,8 +209,19 @@ def loss_fn(net: DenseRegNet, batch: Dict[str, torch.Tensor],
                                                generator)
         normed = norm_dm(dms, coms)
         gt = targets.synthesize(poses, cfgs, coms, normed, out_h, out_w)
+    return normed, gt
 
-    r_max, d_max = renorm_clip_schedule(renorm_t)
+
+def forward_loss(net: DenseRegNet, normed: torch.Tensor,
+                 gt: Dict[str, torch.Tensor], net_cfg: NetConfig,
+                 tcfg: TrainConfig, r_max, d_max,
+                 generator: Optional[torch.Generator] = None, group=None):
+    """The part of :func:`loss_fn` from the net on: the training forward
+    with the renorm clip bounds ``r_max``/``d_max`` (floats, or
+    ``BatchRenorm``'s ``(low, high)`` tensor pairs) and the dropout masks
+    drawn from ``generator``, the data terms against ``gt``'s ``hm2``,
+    ``hm3`` and ``um``, and the weight decay. Returns ``(total,
+    metrics)``, metrics detached."""
     if net_cfg.remat:
         outs = remat_forward(net, normed, r_max, d_max, generator)
     else:
@@ -226,3 +240,26 @@ def loss_fn(net: DenseRegNet, batch: Dict[str, torch.Tensor],
     metrics = {"loss": total, "hm_loss": hm_loss, "hm3_loss": hm3_loss,
                "um_loss": um_loss, "reg_loss": reg_loss}
     return total, {k: v.detach() for k, v in metrics.items()}
+
+
+def loss_fn(net: DenseRegNet, batch: Dict[str, torch.Tensor],
+            net_cfg: NetConfig, tcfg: TrainConfig, renorm_t,
+            generator: Optional[torch.Generator] = None, group=None):
+    """Total training loss of one micro-batch: :func:`augment_targets`,
+    then :func:`forward_loss` at the renorm clock ``renorm_t``.
+
+    ``batch``: ``dm (b, H, W, 1)`` raw mm, ``pose (b, 3j)``, ``cfg (b, 6)``,
+    ``com (b, 3)``. With ``tcfg.augment`` the batch is augmented first;
+    ``generator`` draws the augmentation and the dropout masks. Data terms
+    are ``sum(x^2)/2`` (``sum|x|`` for ``l1``) over every stack's heads,
+    summed, never averaged; the weight decay is part of every micro loss.
+    The augmentation and the targets are the span
+    ``densereg.train.augment_targets``. With ``group`` (data parallelism) the batch is this
+    rank's slice and the weight decay is divided by the group's size, so
+    that the ranks' losses sum to the global batch's, as the JAX loss does
+    under ``axis_name``. Returns ``(total, metrics)``, metrics detached.
+    """
+    normed, gt = augment_targets(batch, net_cfg, tcfg, generator)
+    r_max, d_max = renorm_clip_schedule(renorm_t)
+    return forward_loss(net, normed, gt, net_cfg, tcfg, r_max, d_max,
+                        generator, group)

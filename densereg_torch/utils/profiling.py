@@ -33,10 +33,17 @@ span (once per)                      where
 ``densereg.pipeline.wait`` (batch)   ``InputPipeline``'s wait on its producers
 ``densereg.pipeline.feed`` (batch)   ``InputPipeline``'s copy to the device and
                                      crop (or wire decode)
-``densereg.train.augment_targets``   ``train.state.loss_fn``: augmentation,
-  (micro-batch)                      ``norm_dm``, ``targets.synthesize``
+``densereg.train.augment_targets``   ``train.state.augment_targets``:
+  (micro-batch)                      augmentation, ``norm_dm``,
+                                     ``targets.synthesize``
 ``densereg.train.forward_backward``  a micro-batch's ``loss_fn`` call and its
-  (micro-batch)                      ``backward()``; holds augment_targets
+  (micro-batch)                      ``backward()``, or where the step is
+                                     graphed its augment_targets and
+                                     graph_replay; holds augment_targets
+``densereg.train.graph_replay``      ``train.step.MicroBatchGraph``: the replay
+  (graphed micro-batch)              of the forward and backward's CUDA graph
+                                     and the copy of its losses; inside
+                                     forward_backward
 ``densereg.train.all_reduce`` (call) ``train.step.all_reduce_sum_``
 ``densereg.train.optimizer`` (step)  ``train_step``'s update: the division, the
                                      norms, ``ClippedAdam.step``, the EMA

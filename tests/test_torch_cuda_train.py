@@ -3,7 +3,10 @@ same step on the CPU, and ``train()`` with validation on the fused decode
 kernel (K1), a resume and a served checkpoint; the training tooling of
 ``chip_smoke.py``'s ``tooling`` phase (remat against the plain step, the
 fused step against the pipeline's crop and the step, the event file, the
-profiler's trace and the debug images, the host crop and the uint16 wire).
+profiler's trace and the debug images, the host crop and the uint16 wire);
+then the training step's CUDA graph (``train.step.MicroBatchGraph``)
+against the eager step, a capture again after a gradient set to None, and
+a resume after graphed steps against an uninterrupted graphed run.
 
 These tests need an NVIDIA GPU with the CUDA toolkit (K1 is built by nvcc
 on first use) and skip elsewhere. They import no JAX:
@@ -12,9 +15,12 @@ on first use) and skip elsewhere. They import no JAX:
 
 Tolerances, as ``chip_smoke.py``'s full-width step: loss rtol 2e-4, each
 parameter's averaged gradient within relative norm 5e-2, moving
-statistics rtol 2e-3 / atol 2e-5 (float32, TF32 off).
+statistics rtol 2e-3 / atol 2e-5 (float32, TF32 off). The graph against
+the eager step is held to the benchmark's limits for its train cell
+(:data:`GRAPH_LIMITS`).
 """
 
+import json
 import os
 
 import numpy as np
@@ -28,11 +34,13 @@ cap_torch_threads(torch)
 import chip_smoke  # noqa: E402
 from chip_smoke import phase_train_card_vs_cpu, pose_boxes  # noqa: E402
 from densereg_torch import NetConfig, Predictor  # noqa: E402
-from densereg_torch.models import init_variables  # noqa: E402
+from densereg_torch.models import init_train_variables, init_variables  # noqa: E402
 from densereg_torch.config import TrainConfig, model_desc  # noqa: E402
-from densereg_torch.data import synthetic  # noqa: E402
+from densereg_torch.data import InputPipeline, synthetic  # noqa: E402
 from densereg_torch.ops import fused_decode as ops  # noqa: E402
-from densereg_torch.train import train  # noqa: E402
+from densereg_torch.train import create_train_state, train, train_step  # noqa: E402
+from densereg_torch.train import step as step_lib  # noqa: E402
+from densereg_torch.train.checkpoint import CheckpointManager  # noqa: E402
 
 NET = NetConfig(num_stack=2, num_fea=16, num_joint=16, input_hw=(32, 32))
 
@@ -126,3 +134,169 @@ def test_host_preprocess_and_wire_on_card(cuda, specs, tmp_path):
                                   str(tmp_path), cuda)
     assert row["crop_uint16_vs_float32_host_mm"] <= row["wire_bound_mm"]
     assert row["test_float32_vs_device_crop"]["joints_off_unexplained"] == 0
+
+
+# the benchmark's train-cell limits and its readings: each step's loss gap
+# over the eager loss; the first averaged gradient's and the change's
+# (parameters and moving statistics, over the steps) worst leaf, a leaf's
+# gap the gap of the two norms over the eager norm or the median leaf's,
+# whichever is larger, over the leaves whose eager gradient reaches a
+# thousandth of the median leaf's (and every moving statistic)
+GRAPH_LIMITS = {"loss": 3.5e-4, "grad1": 1e-3, "change": 0.055}
+GRAPH_TCFG = TrainConfig(batch_size=8, sub_batch=3)
+
+
+def _worst_leaf(got: dict, want: dict, keys) -> float:
+    norms = {k: float(want[k].double().norm()) for k in keys}
+    floor = float(np.median(list(norms.values())))
+    return max(abs(float(got[k].double().norm()) - norms[k])
+               / max(norms[k], floor, 1e-30) for k in keys)
+
+
+def _batches(spec, cfg, n, device):
+    pipe = InputPipeline(spec, GRAPH_TCFG.batch_size, GRAPH_TCFG.sub_batch,
+                         cfg.input_hw, seed=5, device=device)
+    try:
+        it = iter(pipe)
+        return [next(it) for _ in range(n)]
+    finally:
+        pipe.close()
+
+
+def _run_steps(cfg, batches, device, monkeypatch, graphed,
+               deterministic=False, drop_grad_after=None):
+    """Steps from one init and generator seed, graphed or (with
+    ``graphed`` patched off) eager, with cuDNN's deterministic algorithms
+    or its default ones; with ``drop_grad_after``, the first parameter's
+    gradient is set to None after that step, and the old gradient tensor
+    is kept to see whether anything writes it later."""
+    with monkeypatch.context() as m:
+        m.setattr(torch.backends.cudnn, "deterministic", deterministic)
+        if not graphed:
+            m.setattr(step_lib, "graphed", lambda *a, **kw: False)
+        state = create_train_state(cfg, GRAPH_TCFG, 100.0,
+                                   variables=init_train_variables(cfg, 3),
+                                   device=device)
+        before = {k: v.detach().clone()
+                  for k, v in state.net.state_dict().items()}
+        gen = torch.Generator(device=device)
+        gen.manual_seed(11)
+        counts = dict(step_lib.graph_counts)
+        out = {"loss": [], "stale": None}
+        for i, batch in enumerate(batches):
+            metrics = train_step(state, batch, cfg, GRAPH_TCFG, gen,
+                                 with_grads=i == 0)
+            out["loss"].append(float(metrics["loss"]))
+            if i == 0:
+                out["grad1"] = metrics["grads"]
+            if i == drop_grad_after:
+                p = next(state.net.parameters())
+                out["stale"] = (p.grad, p.grad.clone())
+                p.grad = None
+        torch.cuda.synchronize()
+        out["change"] = {k: v.detach() - before[k]
+                         for k, v in state.net.state_dict().items()}
+        out["generator"] = gen.get_state()
+        out["counts"] = {k: v - counts[k]
+                         for k, v in step_lib.graph_counts.items()}
+    return out
+
+
+def _gaps(graph, eager) -> dict:
+    grads = {k: float(g.double().norm()) for k, g in eager["grad1"].items()}
+    median = float(np.median(list(grads.values())))
+    moved = [k for k, v in grads.items() if v >= 1e-3 * median]
+    stats = [k for k in eager["change"] if k.endswith((".mean", ".var"))]
+    return {"loss": max(abs(a - b) / abs(b) for a, b in
+                        zip(graph["loss"], eager["loss"])),
+            "grad1": _worst_leaf(graph["grad1"], eager["grad1"], moved),
+            "change": _worst_leaf(graph["change"], eager["change"],
+                                  moved + stats)}
+
+
+def _bit_equal(graph, eager) -> bool:
+    return (graph["loss"] == eager["loss"]
+            and all(torch.equal(graph[part][k], eager[part][k])
+                    for part in ("grad1", "change") for k in eager[part]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", ["um_v1", "um_v1_lite", "um_v1_deconv"])
+def test_graphed_steps_match_the_eager_steps(cuda, specs, monkeypatch,
+                                             module):
+    """4 steps of 8 x 3, augmentation and dropout on, from one init and
+    seed: with cuDNN's default algorithms the graphed steps lie within the
+    benchmark's limits of the eager ones (cuDNN's unordered sums part two
+    eager runs as far); with its deterministic ones they equal them bit
+    for bit. The generator ends where the eager one does; one warm-up
+    pass, one capture, every later micro-batch a replay."""
+    cfg = NetConfig(num_stack=2, num_fea=16, num_joint=16, input_hw=(32, 32),
+                    net_module=module)
+    batches = _batches(specs[0], cfg, 4, cuda)
+    graph = _run_steps(cfg, batches, cuda, monkeypatch, graphed=True)
+    eager = _run_steps(cfg, batches, cuda, monkeypatch, graphed=False)
+    gaps = _gaps(graph, eager)
+    print(json.dumps({"module": module, "gaps": gaps,
+                      "counts": graph["counts"]}))
+    assert all(gaps[k] <= GRAPH_LIMITS[k] for k in gaps), gaps
+    assert torch.equal(graph["generator"], eager["generator"])
+    micro = 4 * GRAPH_TCFG.sub_batch
+    assert graph["counts"] == {"captures": 1, "replays": micro - 2,
+                               "eager": 1}
+    assert eager["counts"] == {"captures": 0, "replays": 0, "eager": micro}
+    assert _bit_equal(*(_run_steps(cfg, batches, cuda, monkeypatch, graphed=g,
+                                   deterministic=True)
+                        for g in (True, False)))
+
+
+@pytest.mark.cuda
+def test_graph_captures_again_after_a_gradient_is_set_to_none(
+        cuda, specs, monkeypatch):
+    """A gradient set to None between steps is made anew, so the graph
+    captures again: the old gradient is never written, and the steps
+    equal the eager ones bit for bit (cuDNN's deterministic
+    algorithms)."""
+    batches = _batches(specs[0], NET, 3, cuda)
+    graph, eager = (_run_steps(NET, batches, cuda, monkeypatch, graphed=g,
+                               deterministic=True, drop_grad_after=0)
+                    for g in (True, False))
+    stale, kept = graph["stale"]
+    assert torch.equal(stale, kept)
+    assert _bit_equal(graph, eager)
+    assert graph["counts"] == {"captures": 2, "replays": 3 * 3 - 3,
+                               "eager": 1}
+
+
+@pytest.mark.cuda
+def test_graphed_resume_continues_bit_for_bit(cuda, specs, tmp_path,
+                                              monkeypatch):
+    """train() for 4 graphed steps, against 2 steps, a checkpoint after
+    the second (a replayed step) and a resumed call for the last 2: the
+    same weights, moving statistics, Adam moments, clock and generator, to
+    the bit. cuDNN picks deterministic algorithms here, so that two runs
+    of the same kernels sum alike."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    spec = specs[0]
+    cfg = lambda d: TrainConfig(batch_size=4, sub_batch=3,
+                                base_dir=str(tmp_path / d))
+    quiet = dict(device=cuda, debug_level=0, log_fn=lambda *_: None)
+    counts = dict(step_lib.graph_counts)
+    whole = train(spec, NET, cfg("a"), max_steps=4, **quiet)
+    assert step_lib.graph_counts["replays"] - counts["replays"] == 4 * 3 - 2
+    train(spec, NET, cfg("b"), max_steps=2, **quiet)
+    resumed = train(spec, NET, cfg("b"), max_steps=4, restore_step="auto",
+                    **quiet)
+    for (k, x), y in zip(whole.net.state_dict().items(),
+                         resumed.net.state_dict().values()):
+        assert torch.equal(x, y), k
+    sa, sb = whole.optimizer.state_dict(), resumed.optimizer.state_dict()
+    assert sa["param_groups"] == sb["param_groups"]
+    for i, st in sa["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v, sb["state"][i][k]), (i, k)
+    assert whole.step == resumed.step == 4
+    assert torch.equal(whole.renorm_t, resumed.renorm_t)
+    gens = [CheckpointManager(os.path.join(
+        c.base_dir, model_desc(spec.name, spec.subset, NET, c.augment),
+        "ckpt")).load(4)["generators"]["train"] for c in (cfg("a"), cfg("b"))]
+    assert torch.equal(*gens)

@@ -53,6 +53,8 @@ from densereg_torch.train import (  # noqa: E402
     train_step,
     weight_decay_loss,
 )
+from densereg_torch.train import step as step_lib  # noqa: E402
+from densereg_torch.train.state import renorm_clip_bounds  # noqa: E402
 
 SHAPE = dict(num_stack=2, num_fea=8, num_joint=3, input_hw=(32, 32))
 NET = NetConfig(**SHAPE, dropout_rate=0.0)
@@ -181,6 +183,70 @@ def test_batch_renorm_training_form_matches_flax(t):
         assert not np.allclose(y_j, JBatchRenorm().apply(
             {"params": params, "batch_stats": stats}, x, train=True,
             mutable=["batch_stats"])[0])
+
+
+@pytest.mark.parametrize("t", [0.0, 0.37, 2.5])
+def test_batch_renorm_tensor_bounds_equal_float_bounds(t):
+    """The clip ranges as ``(low, high)`` pairs of 0-d tensors (what a CUDA
+    graph of the training step reads) give the float bounds' outputs,
+    moving statistics and gradients bit for bit, with r and d clipped."""
+    rng = np.random.default_rng(int(t * 100) + 3)
+    c = 6
+    x = torch.from_numpy(rng.normal(0.3, 1.7, (4, c, 5, 7)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32))
+    mean = torch.from_numpy(rng.normal(0, 2.0, c).astype(np.float32))
+    var = torch.from_numpy(rng.uniform(0.05, 30.0, c).astype(np.float32))
+    r_max, d_max = renorm_clip_schedule(t)
+    bounds = renorm_clip_bounds(t)
+    assert bounds.tolist() == np.array(
+        [1.0 / r_max, r_max, -d_max, d_max], np.float32).tolist()
+    b = torch.from_numpy(bounds)
+    runs = []
+    for clip in ((r_max, d_max), ((b[0], b[1]), (b[2], b[3]))):
+        bn = BatchRenorm(c).train()
+        with torch.no_grad():
+            bn.mean.copy_(mean)
+            bn.var.copy_(var)
+        xt = x.clone().requires_grad_(True)
+        y = bn(xt, *clip)
+        (y * w).sum().backward()
+        runs.append((y.detach(), bn.mean.clone(), bn.var.clone(), xt.grad,
+                     bn.gamma.grad, bn.beta.grad))
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+    unclipped = BatchRenorm(c).train()
+    with torch.no_grad():
+        unclipped.mean.copy_(mean)
+        unclipped.var.copy_(var)
+    assert not torch.equal(unclipped(x, 1e9, 1e9), runs[0][0])
+
+
+@pytest.mark.parametrize("device,group,remat,want", [
+    ("cpu", None, False, False),
+    ("cuda", object(), False, False),
+    ("cuda", None, True, False),
+    ("cuda", None, False, True)], ids=["cpu", "group", "remat", "cuda"])
+def test_graph_engages_only_where_it_is_safe(device, group, remat, want):
+    """A training step replays CUDA graphs on a card alone, without a
+    process group (a synchronised renorm all-reduces inside the forward)
+    and without remat (which rewinds the generator on the host)."""
+    cfg = NetConfig(**SHAPE, remat=remat)
+    assert step_lib.graphed(cfg, torch.device(device), group) is want
+
+
+def test_cpu_step_runs_eagerly_and_counts_it(batch):
+    """On the CPU every micro-batch runs eagerly, counted as such, and no
+    graph is made."""
+    tcfg = TrainConfig(**TCFG)
+    state = create_train_state(NET, tcfg, STEPS_PER_EPOCH, device="cpu")
+    before = dict(step_lib.graph_counts)
+    train_step(state, _torch_batch(batch), NET, tcfg,
+               torch.Generator().manual_seed(0))
+    after = step_lib.graph_counts
+    assert after["eager"] - before["eager"] == TCFG["sub_batch"]
+    assert (after["captures"], after["replays"]) == (before["captures"],
+                                                     before["replays"])
+    assert state.graphs == {}
 
 
 def test_renorm_schedule_and_losses_match_jax():
