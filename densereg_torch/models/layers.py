@@ -22,6 +22,11 @@ Activations are quantized per tensor: with the scale of an incoming
 :class:`QTensor`, else with the calibrated ``amax``, else with the batch's
 own ``max|x|`` (dynamic). A calibrated layer also quantizes its own output
 (``out_amax``) and hands on a :class:`QTensor`.
+
+Each standalone quantization of an int8 forward (a convolution's own
+quantize of a float input, and :func:`quantize_output` of a sum) runs
+inside the span ``densereg.int8.quantize``; one fused into a kernel's
+epilogue does not. :data:`int8_counts` counts the int8 forward's steps.
 """
 
 from __future__ import annotations
@@ -40,10 +45,19 @@ from densereg_torch.ops.int8_gemm import (
     quantize,
     same_pads,
 )
+from densereg_torch.utils.profiling import span
 
 # what a calibrated int8 layer's consumers read of its output: the int8
 # side (convolutions), the float side (sums, concatenations, heads) or both
 OUT_USES = ("q", "f", "both")
+
+# the int8 forwards' steps since the process started, read as differences:
+# launches of K3 by entry (``k3_dense``, ``k3_implicit``) and of the
+# depthwise kernel (``dw``), standalone quantize steps (``quantize``), and
+# quantizations with a batch's own ``max|x|`` outside calibration
+# (``dynamic``: 0 in a calibrated net)
+int8_counts = dict.fromkeys(
+    ("k3_dense", "k3_implicit", "dw", "quantize", "dynamic"), 0)
 
 
 class QTensor:
@@ -98,11 +112,13 @@ def quantize_output(mod: nn.Module, y: torch.Tensor, dtype: torch.dtype):
     returns ``y`` in ``dtype``."""
     if not (mod.calibrating or mod.out_amax is not None):
         return y.to(dtype)
-    if mod.calibrating:
-        s = act_scale(_record_amax(mod, "out_amax", y))
-    else:
-        s = act_scale(mod.out_amax)
-    return QTensor(y.to(dtype), quantize(y, s, pitch16=True), s)
+    int8_counts["quantize"] += 1
+    with span("densereg.int8.quantize"):
+        if mod.calibrating:
+            s = act_scale(_record_amax(mod, "out_amax", y))
+        else:
+            s = act_scale(mod.out_amax)
+        return QTensor(y.to(dtype), quantize(y, s, pitch16=True), s)
 
 
 def _pmean(t: torch.Tensor, group) -> torch.Tensor:
@@ -329,11 +345,14 @@ class ConvBR(nn.Module):
         k = self.kernel_q.shape[0]
         w = self._packed_weight()
         if self.depthwise:
+            int8_counts["dw"] += 1
             return int8_dwconv_requant(x_q, w, k, scale, self.bias,
                                        relu=self.relu, **kw)
         if k > 1 or self.stride > 1:
+            int8_counts["k3_implicit"] += 1
             return int8_conv_requant(x_q, w, k, self.stride, scale,
                                      self.bias, relu=self.relu, **kw)
+        int8_counts["k3_dense"] += 1
         b, h, wd, c = x_q.shape
         out = int8_gemm_requant(x_q.reshape(b * h * wd, c), w[:, :c].t(),
                                 scale, self.bias, relu=self.relu, **kw)
@@ -344,13 +363,16 @@ class ConvBR(nn.Module):
         if isinstance(x, QTensor):
             x_q, s_x = x.q, x.s
         else:
-            if self.calibrating:
-                s_x = act_scale(_record_amax(self, "amax", x))
-            elif self.amax is not None:
-                s_x = act_scale(self.amax)
-            else:
-                s_x = act_scale(x.float().abs().amax())
-            x_q = quantize(x, s_x, pitch16=True)
+            int8_counts["quantize"] += 1
+            with span("densereg.int8.quantize"):
+                if self.calibrating:
+                    s_x = act_scale(_record_amax(self, "amax", x))
+                elif self.amax is not None:
+                    s_x = act_scale(self.amax)
+                else:
+                    int8_counts["dynamic"] += 1
+                    s_x = act_scale(x.float().abs().amax())
+                x_q = quantize(x, s_x, pitch16=True)
         conv = lambda **kw: self._conv(x_q, s_x * self.scale, **kw)
         if self.calibrating:
             _, y = conv(emit_q=False, emit_f=True, f_dtype=torch.float32)

@@ -12,8 +12,9 @@ traces ``TrainConfig.profile_dir``'s steps with them.
 launches the work, so a range shares the clock of the kernels and copies
 it issues. Spans nest by time on one thread: a dispatch's spans sit inside
 its request's span, and that nesting is what ties them together. No span
-sits inside the network's layers (a training step issues tens of
-thousands of kernels). The spans:
+sits inside the float network's layers (a training step issues tens of
+thousands of kernels); in the int8 serving net each standalone quantize
+step opens one. The spans:
 
 span (once per)                      where
 ``densereg.predict`` (request)       ``serving.Predictor.__call__``
@@ -24,6 +25,10 @@ span (once per)                      where
 ``densereg.preprocess`` (chunk)      ``ServingModule.normed``: crop, center of
                                      mass, ``norm_dm``
 ``densereg.net`` (chunk)             the network's forward in ``ServingModule``
+``densereg.int8.quantize`` (step)    the int8 net's standalone quantize
+                                     steps (``models.layers``: a
+                                     convolution's quantize of a float
+                                     input, ``quantize_output`` of a sum)
 ``densereg.decode`` (chunk)          the head-grid subsample and
                                      ``decode_poses``
 ``densereg.fetch`` (chunk)           a chunk's copy to the host in

@@ -17,7 +17,10 @@ card, whose float64 product is exact; the same for its implicit-GEMM
 convolution entry against im2col and the plain GEMM; an int8 net on K3
 equal to the same net on the CPU. The depthwise int8 convolution: the same
 standard as K3, on both of its load paths and at the ties of its
-requantisation, and the lite int8 net on it and K3 equal to the CPU's. The
+requantisation, and the lite int8 net on it and K3 equal to the CPU's,
+also at MSRA's J = 21 (85-channel depthwise, 170- and 105-channel K3
+inputs, a 63-channel head), whose channels-last heads K1 reads on its
+strided path. The
 subnormal scene (``decode_subnormal_scene``):
 K1 and K2 flush as the plain decode does. The serving daemon: no error
 reply, every request answered, K1 once a batch and K3 once a convolution
@@ -107,6 +110,27 @@ def test_fused_decode_lone_frame(cuda, j, hw, layout):
         assert ops.fused_decode.launches_by_path[path] == before[path] + 1
         assert got.shape == (1, j, 3) and torch.isfinite(got).all()
         assert (got.cpu() - want).abs().max().item() <= 6e-6, k
+
+
+@pytest.mark.cuda
+def test_fused_decode_int8_heads_at_21_joints(cuda):
+    """K1 at MSRA's J = 21 on heads as the int8 net serves them
+    (channels-last float32, a K3 epilogue's f), at the serving batch of
+    256: J % 4 != 0, so one launch on the strided path, no copy; against
+    the plain decode on the CPU."""
+    args = as_served(decode_scene(np.random.default_rng(21), 256, 32, 32,
+                                  21), cuda, "nhwc")
+    assert args[0].stride() == (32 * 32 * 21, 32 * 21, 21, 1)
+    want = plain_on_cpu(args)
+    before = dict(ops.fused_decode.launches_by_path)
+    got = ops.fused_decode(*args)
+    torch.cuda.synchronize()
+    assert ops.fused_decode.launches_by_path["strided"] == \
+        before["strided"] + 1
+    assert sum(ops.fused_decode.launches_by_path.values()) == \
+        sum(before.values()) + 1
+    assert got.shape == (256, 21, 3) and torch.isfinite(got).all()
+    assert (got.cpu() - want).abs().max().item() <= 6e-6
 
 
 @pytest.mark.cuda
@@ -534,6 +558,37 @@ def test_int8_lite_net_card_matches_cpu(cuda):
     got, q_got = int8_steps(card, x.to(cuda))
     residuals = sum(isinstance(m, layers.Residual) for m in card.modules())
     assert dw.int8_dwconv_requant.launches == before + residuals
+    for key in want:
+        for g, w in zip(got[key], want[key]):
+            assert torch.equal(g, w), key
+    assert q_got.keys() == q_want.keys()
+    assert all(torch.equal(q_got[k], q) for k, q in q_want.items())
+
+
+@pytest.mark.cuda
+def test_int8_lite_net_at_21_joints_card_matches_cpu(cuda):
+    """The calibrated int8 ``um_v1_lite`` at MSRA's J = 21 and the paper's
+    128 features, on 32x32 crops: K3 meets 170- and 105-channel inputs and
+    a 63-channel output, DW 85 and 65 channels. Heads and every int8
+    step equal to the same net on the CPU."""
+    from chip_smoke import int8_net, int8_steps
+    from densereg_torch import NetConfig
+    from densereg_torch.models import init_variables
+    from densereg_torch.models.bridge import seeded_depth
+
+    cfg = NetConfig(num_stack=2, num_fea=128, num_joint=21,
+                    input_hw=(32, 32), net_module="um_v1_lite")
+    variables = init_variables(cfg, seed=3)
+    x = torch.from_numpy(seeded_depth(np.random.default_rng(4), 3, 32, 32))
+    cpu = int8_net(variables, cfg, "cpu", x)
+    card = int8_net(variables, cfg, cuda, x)
+    before = dict(layers.int8_counts)
+    want, q_want = int8_steps(cpu, x)
+    mid = dict(layers.int8_counts)
+    got, q_got = int8_steps(card, x.to(cuda))
+    steps = {k: layers.int8_counts[k] - mid[k] for k in mid}
+    assert steps == {k: mid[k] - before[k] for k in mid}
+    assert steps["dw"] == 29 and steps["dynamic"] == 0
     for key in want:
         for g, w in zip(got[key], want[key]):
             assert torch.equal(g, w), key

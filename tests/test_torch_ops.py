@@ -175,8 +175,9 @@ def _pitched_nhwc(rng, b, h, w, c):
 
 
 # (C, h, w): the um_v1_lite channel counts that are not multiples of 16
-# (hm3_res, um_resA) beside an aligned one; odd and even maps
-DW_CASES = [(16, 8, 8), (65, 5, 6), (80, 7, 4), (3, 2, 2)]
+# (hm3_res; um_resA at J = 16 and at MSRA's J = 21) beside an aligned one;
+# odd and even maps
+DW_CASES = [(16, 8, 8), (65, 5, 6), (80, 7, 4), (85, 6, 5), (3, 2, 2)]
 
 
 @pytest.mark.parametrize("k", [1, 3, 5])
