@@ -27,7 +27,13 @@ Phases, each printed as one JSON line:
    its requantisation (``dw_tie_scene``: y at (n + 1/2) s_y and 1 to 3 ulps
    around it, five s_y). K1 also on the
    subnormal scene (``decode_subnormal_scene``: Gaussian weights that
-   underflow, which the decode flushes to zero as XLA does).
+   underflow, which the decode flushes to zero as XLA does). Then the
+   quantize kernel (``int8_quantize``) at every distinct standalone step
+   of the calibrated int8 ``um_v1_lite`` net at J = 21, batch 256, on its
+   operands, each row with the path the kernel took, and the Q line: the
+   forward's steps summed against their byte bound and the plain glue,
+   and the forward's host issue time with the kernel and with the plain
+   glue.
 4. ``model``: DenseRegNet s2/f128/J16 at 128x128 input (seeded random
    weights, ``init_variables``) on the card against the CPU, float32 with
    TF32 off; then the calibrated int8 net on the card (K3) against the
@@ -36,8 +42,9 @@ Phases, each printed as one JSON line:
 5. ``serving``: the main path. ``Predictor`` serves uint16 240x320 frames
    with boxes, 1,024 per request, in float32, bfloat16 and calibrated int8
    (bfloat16 views), then one dynamic int8 request and one lone frame; the
-   kernels' launch counts (K1's by staging path, and the im2col builds on
-   the card, which must stay 0) are zeroed just before and read just after.
+   kernels' launch counts (K1's and the quantize kernel's by path, the
+   latter one a standalone quantize step, and the im2col builds on the
+   card, which must stay 0) are zeroed just before and read just after.
    Then its decode is held against the plain decode on the same heads, the
    whole path against CPU predictors, and each dtype's stages and lone-frame
    latency are timed.
@@ -148,8 +155,9 @@ Phases, each printed as one JSON line:
 Then a ``kernels`` line (``train_launches``, ``eval_launches``,
 ``variants_launches``, ``tooling_launches``, ``daemon_launches``,
 ``export_launches``, ``multigpu_launches``, ``cli_launches``,
-``tools_launches``: each kernel's launches in phases 7 to 15; the
-depthwise kernel's ``launches`` are phase 9's), the card's ``nvidia-smi`` name and power limit, and
+``tools_launches``: each kernel's launches in phases 7 to 15, with K1's
+and the quantize kernel's by path; the depthwise kernel's ``launches`` are
+phase 9's), the card's ``nvidia-smi`` name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or when any phase fails, it exits non-zero and prints no result.
 """
@@ -201,6 +209,7 @@ from densereg_torch.ops import _build
 from densereg_torch.ops import fused_decode as fd
 from densereg_torch.ops import int8_dwconv as dw
 from densereg_torch.ops import int8_gemm as k3
+from densereg_torch.ops import int8_quantize as iq
 from densereg_torch.ops import meanshift as k2
 from densereg_torch.preprocess import (
     _bbox_from_pose,
@@ -1088,6 +1097,170 @@ def phase_dw_scenes(device, iters: int = 20, b: int = 256):
 
 
 # --------------------------------------------------------------------------
+# kernel: the standalone int8 quantize step (the int8 forward's glue)
+# --------------------------------------------------------------------------
+
+def record_quantize_calls(net, x):
+    """Run ``net(x)`` once with the quantize kernel's wrapper spied on.
+    Returns the distinct calls, ``{(h, w, C, dtype, with the addend):
+    [(a, amax, b), calls per forward, path]}``, each with the operands of
+    its first call and the path its launch took, as the wrapper counts
+    it."""
+    real = layers.int8_quantize
+    calls = {}
+
+    def spy(a, amax, b=None):
+        key = (*a.shape[1:], str(a.dtype).split(".")[-1], b is not None)
+        before = dict(iq.int8_quantize.launches_by_path)
+        out = real(a, amax, b)
+        path = "+".join(p for p, n in iq.int8_quantize.launches_by_path.items()
+                        if n != before[p])
+        if key not in calls:
+            calls[key] = [(a, amax, b), 0, path]
+        calls[key][1] += 1
+        return out
+
+    layers.int8_quantize = spy
+    try:
+        with torch.inference_mode():
+            net(x)
+    finally:
+        layers.int8_quantize = real
+    return calls
+
+
+def quantize_bytes(a: torch.Tensor, with_b: bool) -> int:
+    """Bytes one quantize step needs: each input element read once, q (1
+    byte) and, with the addend, f written once."""
+    e = a.element_size()
+    return a.numel() * ((2 * e + e + 1) if with_b else (e + 1))
+
+
+# device cycles of the sleep kernel that holds the card busy while the host
+# issues a forward (about 0.25 s at the H100's clocks)
+BUSY_SLEEP_CYCLES = 500_000_000
+
+
+def forward_times(net, x, reps: int = 10):
+    """``net(x)``'s times in ms: ``host_issue_ms``, the host clock over a
+    call issued while a sleep kernel of ``sleep_ms`` holds the card busy
+    (every launch then meets a queue, as in serving, and the host waits on
+    none while the queue has room: ``queue_full`` where the call took 90%
+    of the sleep or more, and the reading is the sleep's, not the
+    host's), and ``host_issue_idle_ms``, over a call started on an idle
+    card, the medians of ``reps``; ``forward_ms``, CUDA events over
+    ``reps`` back-to-back calls (the device's time, or the host's where it
+    issues slower)."""
+    busy, idle = [], []
+    with torch.inference_mode():
+        net(x)
+        torch.cuda.synchronize()
+        sleep_ms = cuda_ms(lambda: torch.cuda._sleep(BUSY_SLEEP_CYCLES), 1,
+                           warmup=0)
+        for _ in range(reps):
+            for held, out in ((True, busy), (False, idle)):
+                if held:
+                    torch.cuda._sleep(BUSY_SLEEP_CYCLES)
+                t0 = time.perf_counter()
+                net(x)
+                out.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+        ms = cuda_ms(lambda: net(x), reps)
+    issue = statistics.median(busy) * 1e3
+    return {"host_issue_ms": issue, "sleep_ms": sleep_ms,
+            "queue_full": issue >= 0.9 * sleep_ms,
+            "host_issue_idle_ms": statistics.median(idle) * 1e3,
+            "forward_ms": ms}
+
+
+def phase_kernel_quantize(variables, net_cfg: NetConfig, device,
+                          b: int = 256, iters: int = 20):
+    """The quantize kernel (``ops.int8_quantize``) at every standalone step
+    of one calibrated int8 forward of ``net_cfg`` at batch ``b``, on that
+    forward's operands, against its plain form on the card: ``q``
+    bit-identical, ``f`` and ``s`` equal. A row a distinct call: its
+    ``device_ms`` (profiler), the plain form's ``plain_ms`` (events) and
+    the byte bound. Then the Q line: the forward's steps summed
+    (``device_ms``, ``bound_ms``, ``share_of_bound``, ``plain_ms``), one
+    launch a step, and the whole forward with the kernel and with the
+    plain glue (``host_issue_ms``, ``forward_ms``). Returns the Q line."""
+    rng = np.random.default_rng(SEED + 7)
+    dms = torch.from_numpy(seeded_depth(rng, b, *net_cfg.input_hw)).to(device)
+    net = int8_net(variables, net_cfg, device, dms[:64])
+    counts0, launches0 = dict(layers.int8_counts), iq.int8_quantize.launches
+    paths0 = dict(iq.int8_quantize.launches_by_path)
+    calls = record_quantize_calls(net, dms)
+    steps = layers.int8_counts["quantize"] - counts0["quantize"]
+    kernel_steps = (layers.int8_counts["quantize_kernel"]
+                    - counts0["quantize_kernel"])
+    launches = iq.int8_quantize.launches - launches0
+    by_path = {p: n - paths0[p]
+               for p, n in iq.int8_quantize.launches_by_path.items()}
+    rows = []
+    with torch.inference_mode():
+        for (h, w, c, dt, with_b), ((a, amax, addend), count, path) in sorted(
+                calls.items(), key=lambda kv: -kv[1][0][0].numel()):
+            run = lambda: iq.int8_quantize(a, amax, addend)
+            plain = lambda: iq.int8_quantize_reference(a, addend, amax)
+            q, f, s = run()
+            q0, f0, s0 = plain()
+            torch.cuda.synchronize()
+            q_bad = int((q != q0).sum().item())
+            f_bad = 0 if f is None else int((f != f0).sum().item())
+            s_equal = bool(torch.equal(s, s0))
+            nbytes = quantize_bytes(a, with_b)
+            dev_ms = device_ms(run, iters, "quantize_")
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            row = {"phase": "kernel", "name": "int8_quantize",
+                   "shape": {"b": b, "h": h, "w": w, "C": c, "dtype": dt,
+                             "sum": with_b},
+                   "path": path,
+                   "calls_per_forward": count, "q_mismatches": q_bad,
+                   "f_mismatches": f_bad, "s_equal": s_equal,
+                   "device_ms": dev_ms, "plain_ms": cuda_ms(plain, 3),
+                   "host_us": host_us(run, 200),
+                   "bytes": nbytes, "bound_ms": bound,
+                   "share_of_bound": None if dev_ms is None
+                   else bound / dev_ms}
+            emit(row)
+            check(q_bad == 0 and f_bad == 0 and s_equal,
+                  f"int8_quantize {h}x{w}x{c} {dt} sum={with_b}: {q_bad} q "
+                  f"and {f_bad} f off the plain form, s equal {s_equal}")
+            rows.append(row)
+            del a, amax, addend, q, f, s, q0, f0, s0
+    calls.clear()
+    total = {k: per_forward(rows, k)
+             for k in ("device_ms", "plain_ms", "bound_ms", "bytes")}
+    total["share_of_bound"] = (None if total["device_ms"] is None
+                               else total["bound_ms"] / total["device_ms"])
+    total["host_us_mean"] = statistics.mean(r["host_us"] for r in rows)
+    total["steps"] = steps
+    total["kernel_launches"] = launches
+    total["steps_by_path"] = by_path
+    forward = {"kernel": forward_times(net, dms)}
+    real = layers.int8_quantize
+    layers.int8_quantize = (lambda a, amax, b=None:
+                            iq.int8_quantize_reference(a, b, amax))
+    try:
+        forward["plain"] = forward_times(net, dms)
+    finally:
+        layers.int8_quantize = real
+    log = _build.build_log("int8_quantize")
+    line = {"phase": "kernel", "name": "int8_quantize", "line": "Q",
+            "ptxas": None if log is None else ptxas_usage(log),
+            "net": net_cfg.net_module, "num_joint": net_cfg.num_joint,
+            "compute_dtype": net_cfg.compute_dtype, "batch": b,
+            "distinct_calls": len(rows), "per_forward": total,
+            "forward": forward}
+    emit(line)
+    check(steps == launches == kernel_steps == sum(by_path.values()) == sum(
+        r["calls_per_forward"] for r in rows),
+          f"int8_quantize: {steps} steps a forward, {launches} launches "
+          f"({by_path}), {kernel_steps} counted")
+    return line
+
+
+# --------------------------------------------------------------------------
 # kernel: weighted mean shift (K2), off the serving path
 # --------------------------------------------------------------------------
 
@@ -1359,7 +1532,9 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
     k3.int8_gemm_requant.launches = 0
     k2.weighted_mean_shift_cuda.launches = 0
     dw.int8_dwconv_requant.launches = 0
+    zero_quantize_counts()
     k3.im2col_nhwc.cuda_calls = 0
+    steps0 = layers.int8_counts["quantize"]
     secs, xyz = {}, {}
     for name in ("float32", "bfloat16", "int8"):
         secs[name] = []
@@ -1375,8 +1550,10 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
                 "fused_decode_by_path": dict(fd.fused_decode.launches_by_path),
                 "int8_gemm_requant": k3.int8_gemm_requant.launches,
                 "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches,
-                "int8_dwconv_requant": dw.int8_dwconv_requant.launches}
+                "int8_dwconv_requant": dw.int8_dwconv_requant.launches,
+                **quantize_counts()}
     im2col_on_card = k3.im2col_nhwc.cuda_calls
+    quantize_steps = layers.int8_counts["quantize"] - steps0
     decode_strides = {
         name: [t.stride() for t in pred._heads(
             pred._to_device(frames[:1]), pred._to_device(bbxs[:1]))[:4]]
@@ -1397,6 +1574,7 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
                            for d, s in secs.items()},
           "request_s": secs, "dispatches": dispatches,
           "int8_dispatches": int8_dispatches, "launches": launches,
+          "int8_quantize_steps": quantize_steps,
           "decode_input_strides": decode_strides,
           "im2col_nhwc_cuda_calls": im2col_on_card})
     j3 = 3 * net_cfg.num_joint
@@ -1420,6 +1598,12 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
               f"int8_gemm_requant launched {launches['int8_gemm_requant']} "
               f"times, not {convs} convolutions x {int8_dispatches} "
               f"dispatches")
+        check(launches["int8_quantize"] == quantize_steps > 0
+              and sum(launches["int8_quantize_by_path"].values())
+              == quantize_steps,
+              f"int8_quantize launched {launches['int8_quantize']} times "
+              f"({launches['int8_quantize_by_path']}) in {quantize_steps} "
+              f"standalone quantize steps")
         check(im2col_on_card == 0,
               f"{im2col_on_card} int8 convolutions built an im2col on the "
               f"card instead of running K3's implicit GEMM")
@@ -2019,6 +2203,7 @@ def phase_eval(variables, net_cfg: NetConfig, device, root: str,
     k3.int8_gemm_requant.launches = 0
     k2.weighted_mean_shift_cuda.launches = 0
     dw.int8_dwconv_requant.launches = 0
+    zero_quantize_counts()
     runs = {
         "init_params": run_test(spec, net_cfg, os.path.join(root, "card"),
                                 device, init_params=payload),
@@ -2031,7 +2216,8 @@ def phase_eval(variables, net_cfg: NetConfig, device, root: str,
                 "fused_decode_by_path": dict(fd.fused_decode.launches_by_path),
                 "int8_gemm_requant": k3.int8_gemm_requant.launches,
                 "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches,
-                "int8_dwconv_requant": dw.int8_dwconv_requant.launches}
+                "int8_dwconv_requant": dw.int8_dwconv_requant.launches,
+                **quantize_counts()}
     prof = eval_profile(spec, net_cfg, os.path.join(root, "profiled"), device,
                         init_params=payload)
 
@@ -2073,7 +2259,8 @@ def phase_eval(variables, net_cfg: NetConfig, device, root: str,
           f"eval: K1 launched {launches}, not once a batch on hm_pixels")
     check(launches["int8_gemm_requant"] == 0
           and launches["weighted_mean_shift"] == 0
-          and launches["int8_dwconv_requant"] == 0,
+          and launches["int8_dwconv_requant"] == 0
+          and launches["int8_quantize"] == 0,
           f"the evaluation path launched an off-path kernel: {launches}")
     return launches
 
@@ -2092,7 +2279,20 @@ def zero_counts():
     k3.int8_gemm_requant.launches = 0
     k2.weighted_mean_shift_cuda.launches = 0
     dw.int8_dwconv_requant.launches = 0
+    zero_quantize_counts()
     k3.im2col_nhwc.cuda_calls = 0
+
+
+def zero_quantize_counts():
+    iq.int8_quantize.launches = 0
+    iq.int8_quantize.launches_by_path = dict.fromkeys(iq.PATHS, 0)
+
+
+def quantize_counts():
+    """The quantize kernel's launches, and by path, in ``read_counts``'
+    form."""
+    return {"int8_quantize": iq.int8_quantize.launches,
+            "int8_quantize_by_path": dict(iq.int8_quantize.launches_by_path)}
 
 
 def read_counts():
@@ -2101,6 +2301,7 @@ def read_counts():
             "int8_gemm_requant": k3.int8_gemm_requant.launches,
             "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches,
             "int8_dwconv_requant": dw.int8_dwconv_requant.launches,
+            **quantize_counts(),
             "im2col_nhwc_cuda_calls": k3.im2col_nhwc.cuda_calls}
 
 
@@ -2356,8 +2557,10 @@ def phase_variants(trees, net_cfg: NetConfig, device, root: str,
         "testing", directory=os.path.join(eval_root, "data"), num_shards=4,
         samples_per_shard=75, seed=SEED)
     total = dict.fromkeys(("fused_decode", "int8_gemm_requant",
-                           "weighted_mean_shift", "int8_dwconv_requant"), 0)
+                           "weighted_mean_shift", "int8_dwconv_requant",
+                           "int8_quantize"), 0)
     k1_paths = dict.fromkeys(fd.PATHS, 0)
+    q_paths = dict.fromkeys(iq.PATHS, 0)
     for module in VARIANTS:
         t0 = time.perf_counter()
         cfg = dataclasses.replace(net_cfg, net_module=module)
@@ -2377,10 +2580,13 @@ def phase_variants(trees, net_cfg: NetConfig, device, root: str,
                 total[k] += counts[k]
             for p, v in counts["fused_decode_by_path"].items():
                 k1_paths[p] += v
+            for p, v in counts["int8_quantize_by_path"].items():
+                q_paths[p] += v
         torch.cuda.empty_cache()
         emit({"phase": "variants", "part": "done", "net_module": module,
               "seconds": time.perf_counter() - t0})
-    return {**total, "fused_decode_by_path": k1_paths}
+    return {**total, "fused_decode_by_path": k1_paths,
+            "int8_quantize_by_path": q_paths}
 
 # --------------------------------------------------------------------------
 # tooling: remat, the fused step, observability, host preprocess and wire
@@ -3867,6 +4073,10 @@ def main() -> int:
         dataclasses.replace(net_cfg, net_module="um_v1_lite"), "cuda")
     dw_total = dw_totals["calibrated"]
     dw_scenes = phase_dw_scenes("cuda")
+    lite21 = dataclasses.replace(net_cfg, net_module="um_v1_lite",
+                                 num_joint=21)
+    q_line = phase_kernel_quantize(init_variables(lite21, seed=SEED), lite21,
+                                   "cuda")
     phase_model(variables, net_cfg, "cuda")
     phase_model_int8(variables, net_cfg, "cuda")
     launches, preds, frames, bbxs = phase_serving(variables, "cuda", net_cfg)
@@ -3881,15 +4091,18 @@ def main() -> int:
         k3.int8_gemm_requant.launches = 0
         k2.weighted_mean_shift_cuda.launches = 0
         dw.int8_dwconv_requant.launches = 0
+        zero_quantize_counts()
         train_root = os.path.join(root, "train")
         train_launches = phase_train(net_cfg, "cuda", train_root)
         train_launches.update(
             int8_gemm_requant=k3.int8_gemm_requant.launches,
             weighted_mean_shift=k2.weighted_mean_shift_cuda.launches,
-            int8_dwconv_requant=dw.int8_dwconv_requant.launches)
+            int8_dwconv_requant=dw.int8_dwconv_requant.launches,
+            **quantize_counts())
         check(train_launches["int8_gemm_requant"] == 0
               and train_launches["weighted_mean_shift"] == 0
-              and train_launches["int8_dwconv_requant"] == 0,
+              and train_launches["int8_dwconv_requant"] == 0
+              and train_launches["int8_quantize"] == 0,
               f"the training path launched an off-path kernel: "
               f"{train_launches}")
         # the evaluation path, on counts of its own
@@ -4033,7 +4246,32 @@ def main() -> int:
             "share_of_bound", "max_abs_err")},
         # each window size at the largest lite call, and the outputs of
         # the requantisation tie scene (all bit-identical)
-        **dw_scenes}]})
+        **dw_scenes}, {
+        # the port's own kernel (XLA fuses this glue in the JAX package):
+        # every standalone quantize step of an int8 forward, on each path
+        # that runs one; its figures are one calibrated lite forward at
+        # J = 21, batch 256, every step summed (the Q line)
+        "name": "int8_quantize", "route": "cuda",
+        "source": "densereg_torch/csrc/int8_quantize.cu",
+        "includes": ["densereg_torch/csrc/requant.cuh"],
+        "replaces": "densereg_tpu/models/layers.py:236",
+        **{f"{phase}launches{part}": counts.get(f"int8_quantize{part}")
+           for phase, counts in (
+               ("", launches), ("train_", train_launches),
+               ("eval_", eval_launches), ("variants_", variants_launches),
+               ("tooling_", tooling_launches), ("daemon_", daemon_launches),
+               ("export_", export_launches),
+               ("multigpu_", multigpu_launches), ("cli_", cli_launches),
+               ("tools_", tools_launches))
+           for part in ("", "_by_path")},
+        "calls_per_forward": q_line["per_forward"]["steps"],
+        "steps_by_path": q_line["per_forward"]["steps_by_path"],
+        "device_ms": q_line["per_forward"]["device_ms"],
+        "share_of_bound": q_line["per_forward"]["share_of_bound"],
+        "host_us": q_line["per_forward"]["host_us_mean"],
+        "plain_ms": q_line["per_forward"]["plain_ms"],
+        "bound_ms": q_line["per_forward"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -103,8 +103,8 @@ class Hourglass(nn.Module):
             up = self.deconv_up(lower, channels_last=q)
         if not q:
             return upper + up
-        return quantize_output(self, as_float(upper) + as_float(up),
-                               self.dtype)
+        return quantize_output(self, as_float(upper), self.dtype,
+                               as_float(up))
 
 
 class DenseRegNet(nn.Module):

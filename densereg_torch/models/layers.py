@@ -24,9 +24,11 @@ own ``max|x|`` (dynamic). A calibrated layer also quantizes its own output
 (``out_amax``) and hands on a :class:`QTensor`.
 
 Each standalone quantization of an int8 forward (a convolution's own
-quantize of a float input, and :func:`quantize_output` of a sum) runs
-inside the span ``densereg.int8.quantize``; one fused into a kernel's
-epilogue does not. :data:`int8_counts` counts the int8 forward's steps.
+quantize of a float input, and :func:`quantize_output` of a sum, the add
+included) runs inside the span ``densereg.int8.quantize``; one fused into a
+kernel's epilogue does not. Each is one call of ``ops.int8_quantize`` (one
+kernel launch on the card). :data:`int8_counts` counts the int8 forward's
+steps.
 """
 
 from __future__ import annotations
@@ -42,9 +44,10 @@ from densereg_torch.ops.int8_gemm import (
     int8_conv_requant,
     int8_gemm_requant,
     pack_weight,
-    quantize,
     same_pads,
 )
+from densereg_torch.ops import int8_quantize as quantize_op
+from densereg_torch.ops.int8_quantize import act_scale, int8_quantize
 from densereg_torch.utils.profiling import span
 
 # what a calibrated int8 layer's consumers read of its output: the int8
@@ -53,11 +56,13 @@ OUT_USES = ("q", "f", "both")
 
 # the int8 forwards' steps since the process started, read as differences:
 # launches of K3 by entry (``k3_dense``, ``k3_implicit``) and of the
-# depthwise kernel (``dw``), standalone quantize steps (``quantize``), and
-# quantizations with a batch's own ``max|x|`` outside calibration
+# depthwise kernel (``dw``), standalone quantize steps (``quantize``), the
+# quantize kernel's launches among them (``quantize_kernel``: 0 on the
+# CPU), and quantizations with a batch's own ``max|x|`` outside calibration
 # (``dynamic``: 0 in a calibrated net)
 int8_counts = dict.fromkeys(
-    ("k3_dense", "k3_implicit", "dw", "quantize", "dynamic"), 0)
+    ("k3_dense", "k3_implicit", "dw", "quantize", "quantize_kernel",
+     "dynamic"), 0)
 
 
 class QTensor:
@@ -87,14 +92,6 @@ def as_float(x):
     return x
 
 
-def act_scale(amax: torch.Tensor) -> torch.Tensor:
-    """``max(amax, 1e-8) / 127``, a 0-d float32 tensor on ``amax``'s device,
-    by an IEEE division (a CUDA division by a Python number goes through
-    the reciprocal)."""
-    amax = torch.clamp_min(amax.float(), 1e-8)
-    return amax / amax.new_full((), 127.0)
-
-
 def _record_amax(mod: nn.Module, name: str, x: torch.Tensor) -> torch.Tensor:
     """While calibrating: this batch's ``max|x|``, kept as a running max in
     the buffer ``name``. Returns the batch's own value, which is what the
@@ -105,20 +102,38 @@ def _record_amax(mod: nn.Module, name: str, x: torch.Tensor) -> torch.Tensor:
     return cur
 
 
-def quantize_output(mod: nn.Module, y: torch.Tensor, dtype: torch.dtype):
+def _quantize_step(x: torch.Tensor, amax: torch.Tensor,
+                   addend: Optional[torch.Tensor] = None):
+    """``ops.int8_quantize`` of ``x`` (plus ``addend``) with ``amax``:
+    ``(q, f, s)``, counting its kernel launches in :data:`int8_counts`."""
+    launches = quantize_op.int8_quantize.launches
+    out = int8_quantize(x, amax, addend)
+    int8_counts["quantize_kernel"] += (quantize_op.int8_quantize.launches
+                                       - launches)
+    return out
+
+
+def quantize_output(mod: nn.Module, y: torch.Tensor, dtype: torch.dtype,
+                    addend: Optional[torch.Tensor] = None):
     """Producer-side quantization of a calibrated graph: a :class:`QTensor`
-    of ``y`` with the module's ``out_amax`` (recorded while calibrating),
-    its int8 pixels 16 bytes apart as K3 reads them; an uncalibrated module
-    returns ``y`` in ``dtype``."""
+    of ``y`` (of ``y + addend``, a residual's or an hourglass's sum, added
+    inside the step) with the module's ``out_amax`` (recorded while
+    calibrating), its int8 pixels 16 bytes apart as K3 reads them; an
+    uncalibrated module returns the value in ``dtype``."""
     if not (mod.calibrating or mod.out_amax is not None):
-        return y.to(dtype)
+        return (y if addend is None else y + addend).to(dtype)
     int8_counts["quantize"] += 1
     with span("densereg.int8.quantize"):
         if mod.calibrating:
-            s = act_scale(_record_amax(mod, "out_amax", y))
+            # the maximum is recorded from the sum, which the step then
+            # quantizes with the batch's own maximum
+            if addend is not None:
+                y, addend = y + addend, None
+            amax = _record_amax(mod, "out_amax", y)
         else:
-            s = act_scale(mod.out_amax)
-        return QTensor(y.to(dtype), quantize(y, s, pitch16=True), s)
+            amax = mod.out_amax
+        q, f, s = _quantize_step(y, amax, addend)
+        return QTensor((y if f is None else f).to(dtype), q, s)
 
 
 def _pmean(t: torch.Tensor, group) -> torch.Tensor:
@@ -366,13 +381,13 @@ class ConvBR(nn.Module):
             int8_counts["quantize"] += 1
             with span("densereg.int8.quantize"):
                 if self.calibrating:
-                    s_x = act_scale(_record_amax(self, "amax", x))
-                elif self.amax is not None:
-                    s_x = act_scale(self.amax)
+                    amax = _record_amax(self, "amax", x)
                 else:
-                    int8_counts["dynamic"] += 1
-                    s_x = act_scale(x.float().abs().amax())
-                x_q = quantize(x, s_x, pitch16=True)
+                    amax = self.amax
+                    if amax is None:
+                        int8_counts["dynamic"] += 1
+                        amax = x.float().abs().amax()
+                x_q, _, s_x = _quantize_step(x, amax)
         conv = lambda **kw: self._conv(x_q, s_x * self.scale, **kw)
         if self.calibrating:
             _, y = conv(emit_q=False, emit_f=True, f_dtype=torch.float32)
@@ -423,7 +438,7 @@ class Residual(nn.Module):
         if not self.quantized:
             return y + s
         # calibrated graphs requantize the sum, so the next layer reads int8
-        return quantize_output(self, as_float(y) + as_float(s), self.dtype)
+        return quantize_output(self, as_float(y), self.dtype, as_float(s))
 
 
 def max_pool_same(x, window: int, stride: int, channels_last: bool = False):

@@ -12,9 +12,10 @@ never served stale.
 compute them; ``--use_fast_math`` is deliberately absent. The decode
 kernels add ``-ftz=true`` (:data:`SOURCE_FLAGS`): they flush subnormal
 float32 values to zero, as XLA and their plain version do; K3 keeps IEEE
-subnormals, as its plain version does. The depthwise kernel is built with
-``-Xptxas -v``: the compiler's output (registers, spills, shared memory of
-each kernel) is kept beside the library (:func:`build_log`).
+subnormals, as its plain version does. The depthwise and the quantize
+kernels are built with ``-Xptxas -v``: the compiler's output (registers,
+spills, shared memory of each kernel) is kept beside the library
+(:func:`build_log`).
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # flags of one source on top of NVCC_FLAGS
 SOURCE_FLAGS = {"fused_decode": ("-ftz=true",), "meanshift": ("-ftz=true",),
-                "int8_dwconv": ("-Xptxas", "-v")}
+                "int8_dwconv": ("-Xptxas", "-v"),
+                "int8_quantize": ("-Xptxas", "-v")}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

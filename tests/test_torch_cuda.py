@@ -17,10 +17,14 @@ card, whose float64 product is exact; the same for its implicit-GEMM
 convolution entry against im2col and the plain GEMM; an int8 net on K3
 equal to the same net on the CPU. The depthwise int8 convolution: the same
 standard as K3, on both of its load paths and at the ties of its
-requantisation, and the lite int8 net on it and K3 equal to the CPU's,
+requantisation, and the lite int8 net on it, K3 and the quantize kernel
+equal to the CPU's,
 also at MSRA's J = 21 (85-channel depthwise, 170- and 105-channel K3
 inputs, a 63-channel head), whose channels-last heads K1 reads on its
-strided path. The
+strided path. The quantize kernel: ``q`` bit-identical, ``f`` and
+the scale equal to its plain form on the card at every step shape of the
+lite net and at the values where rounding and clamping decide, one launch
+a call. The
 subnormal scene (``decode_subnormal_scene``):
 K1 and K2 flush as the plain decode does. The serving daemon: no error
 reply, every request answered, K1 once a batch and K3 once a convolution
@@ -587,7 +591,11 @@ def test_int8_lite_net_at_21_joints_card_matches_cpu(cuda):
     mid = dict(layers.int8_counts)
     got, q_got = int8_steps(card, x.to(cuda))
     steps = {k: layers.int8_counts[k] - mid[k] for k in mid}
-    assert steps == {k: mid[k] - before[k] for k in mid}
+    # each standalone quantize step one launch of the quantize kernel on
+    # the card, none on the CPU; every other step alike
+    assert steps["quantize_kernel"] == steps["quantize"] == 53
+    assert (dict(steps, quantize_kernel=0)
+            == {k: mid[k] - before[k] for k in mid})
     assert steps["dw"] == 29 and steps["dynamic"] == 0
     for key in want:
         for g, w in zip(got[key], want[key]):
@@ -611,6 +619,164 @@ def test_quantize_divides_exactly_on_the_card(cuda):
     assert torch.equal(got.cpu(), want)
     assert torch.equal(layers.act_scale(x.abs().amax().to(cuda)).cpu(),
                        layers.act_scale(x.abs().amax()))
+
+
+# (h, w, C, with the addend) of every standalone quantize step of the s2/f128
+# int8 um_v1_lite net at J = 21 on 128x128 crops (the stem's depth, the
+# sums, the concatenations 105, 131, 170 and 515)
+LITE_QUANTIZE_STEPS = [
+    (128, 128, 1, False), (64, 64, 64, True), (32, 32, 64, True),
+    (32, 32, 105, False), (32, 32, 128, False), (32, 32, 128, True),
+    (32, 32, 131, False), (32, 32, 170, False), (32, 32, 256, True),
+    (32, 32, 512, False), (32, 32, 512, True), (32, 32, 515, False),
+    (16, 16, 128, False), (16, 16, 128, True), (8, 8, 128, True),
+    (4, 4, 128, True), (2, 2, 128, True)]
+
+
+def _quantize_matches_plain(a, b, amax):
+    """One launch of the quantize kernel against its plain form on the
+    card: q bit-identical (and laid out alike), f and s equal; counted on
+    the path its operands call for (16 bytes a thread where C % 16 == 0
+    and the inputs start at 16-byte multiples, else element by
+    element)."""
+    from densereg_torch.ops import int8_quantize as iq
+
+    launches = iq.int8_quantize.launches
+    by_path = dict(iq.int8_quantize.launches_by_path)
+    q, f, s = iq.int8_quantize(a, amax, b)
+    assert iq.int8_quantize.launches == launches + 1
+    flat = a.shape[-1] % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (a, b) if t is not None)
+    want = "flat" if flat else "elements"
+    assert {p: n - by_path[p]
+            for p, n in iq.int8_quantize.launches_by_path.items()} == {
+        p: int(p == want) for p in iq.PATHS}
+    q0, f0, s0 = iq.int8_quantize_reference(a, b, amax)
+    assert q.stride() == q0.stride()
+    assert torch.equal(q, q0)
+    assert torch.equal(s, s0) or (s.isnan().item() and s0.isnan().item())
+    if b is None:
+        assert f is None
+    else:
+        assert f.dtype == a.dtype
+        assert torch.equal(f.isnan(), f0.isnan())
+        assert torch.equal(f.nan_to_num(0.0), f0.nan_to_num(0.0))
+    return q, f, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("h,w,c,with_b", LITE_QUANTIZE_STEPS,
+                         ids=[f"{h}x{w}x{c}" + ("-sum" if b else "")
+                              for h, w, c, b in LITE_QUANTIZE_STEPS])
+def test_int8_quantize_matches_plain(cuda, h, w, c, with_b, dtype):
+    """The quantize kernel at every step shape of the lite net at b = 256:
+    one launch a call, against the plain form on the card."""
+    g = torch.Generator(device=cuda).manual_seed(h * 1000 + c)
+    a = (torch.randn((256, h, w, c), generator=g, device=cuda) * 3).to(dtype)
+    b = ((torch.randn((256, h, w, c), generator=g, device=cuda) * 3)
+         .to(dtype) if with_b else None)
+    # a calibrated maximum below the batch's: the clamp at +-127 is met
+    amax = (a.float() if b is None else a.float() + b.float()).abs().amax()
+    _quantize_matches_plain(a, b, amax * 0.8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+def test_int8_quantize_edge_cases(cuda, dtype):
+    """Exact half steps and their neighbours, the clamp's edges, +-inf,
+    +-0 and NaN, amax 0, NaN and inf, on both of the kernel's paths (C = 32
+    by 16 bytes, C = 24 and a misaligned C = 32 element by element), with
+    and without the addend; the plain form on the card equals the CPU's."""
+    from test_torch_int8_quantize import edge_values
+
+    for amax in (0.93, 0.0, float("nan"), float("inf")):
+        amax = torch.tensor(amax)
+        s = torch.tensor(0.93 / 127)
+        vals = edge_values(s).to(dtype)
+        n = vals.numel() - vals.numel() % 96
+        for c, offset in ((32, 0), (24, 0), (32, 1)):
+            flat = torch.zeros(2 * n + 2 * offset, dtype=dtype)
+            flat[offset:offset + n] = vals[:n]
+            flat[n + 2 * offset:] = torch.flip(vals[:n], (0,))
+            flat = flat.to(cuda)
+            a = flat[offset:offset + n].view(-1, 4, c)
+            b = flat[n + 2 * offset:].view(-1, 4, c)
+            for addend in (None, b):
+                q, f, s_out = _quantize_matches_plain(a, addend,
+                                                      amax.to(cuda))
+                q_cpu, _, _ = (torch.ops.densereg.int8_quantize.default(
+                    a.cpu(), None if addend is None else addend.cpu(), amax))
+                assert torch.equal(q.cpu(), q_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("lead,c", [
+    ((3, 5, 7), 105), ((2, 9, 9), 515), ((1, 1, 1), 17), ((4, 6, 6), 24),
+    ((2, 3, 3), 1), ((5, 7), 3), ((2, 33, 33), 170), ((2, 1, 1), 2100),
+    ((300,), 131), ((2, 2, 2), 16), ((7, 3), 48)],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_int8_quantize_any_width(cuda, lead, c, dtype):
+    """Widths and row counts beyond the nets': flat (C % 16 == 0), other
+    widths (below 16, odd, wide) element by element; with and without the
+    addend, and at an input that starts off a 16-byte multiple."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    n = int(np.prod(lead)) * c
+    flat = (torch.randn(n + 1, generator=g, device=cuda) * 3).to(dtype)
+    b = (torch.randn((*lead, c), generator=g, device=cuda) * 3).to(dtype)
+    amax = flat.float().abs().amax() * 0.7
+    for off in (0, 1):
+        a = flat[off:off + n].view(*lead, c)
+        _quantize_matches_plain(a, None, amax)
+        _quantize_matches_plain(a, b, amax)
+
+
+@pytest.mark.cuda
+def test_int8_calibration_on_the_card_matches_cpu(cuda):
+    """Calibrating the lite int8 net at J = 21 on the card: each
+    standalone quantize step one launch of the quantize kernel, and every
+    recorded maximum (``amax``, ``out_amax``) bit-equal to the CPU's."""
+    from chip_smoke import int8_net
+    from densereg_torch import NetConfig
+    from densereg_torch.models import init_variables
+    from densereg_torch.models.bridge import seeded_depth
+
+    cfg = NetConfig(num_stack=2, num_fea=128, num_joint=21,
+                    input_hw=(32, 32), net_module="um_v1_lite")
+    variables = init_variables(cfg, seed=5)
+    x = torch.from_numpy(seeded_depth(np.random.default_rng(6), 3, 32, 32))
+    cpu = int8_net(variables, cfg, "cpu", x)
+    before = dict(layers.int8_counts)
+    card = int8_net(variables, cfg, cuda, x)
+    steps = {k: layers.int8_counts[k] - before[k] for k in before}
+    assert steps["quantize"] > 0
+    assert steps["quantize_kernel"] == steps["quantize"]
+    maxima = lambda net: {k: v for k, v in net.state_dict().items()
+                          if k.endswith("amax")}
+    want, got = maxima(cpu), maxima(card)
+    assert want.keys() == got.keys() and want
+    for key, w in want.items():
+        assert torch.equal(got[key].cpu(), w), key
+
+
+@pytest.mark.cuda
+def test_int8_quantize_refuses_what_it_cannot_take(cuda):
+    """A strided input, an amax off the card, or mismatched addends raise
+    before a launch."""
+    from densereg_torch.ops import int8_quantize as iq
+
+    a = torch.randn(2, 8, 8, 32, device=cuda)
+    amax = torch.tensor(1.0, device=cuda)
+    launches = iq.int8_quantize.launches
+    for args in ((a[..., :16], amax), (a, amax.cpu()), (a, amax, a[:1]),
+                 (a, amax, a.bfloat16()), (a.double(), amax)):
+        with pytest.raises((ValueError, TypeError)):
+            iq.int8_quantize(*args)
+    assert iq.int8_quantize.launches == launches
 
 
 @pytest.mark.cuda

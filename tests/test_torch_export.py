@@ -231,6 +231,11 @@ def _op_cases():
             ("int8_conv_requant", (x4, wk, 3, 2, scale, bias) + kw),
             ("int8_dwconv_requant", (x4, wdw, 3, scale[:20], bias[:20])
              + kw)]
+    amax = torch.tensor(0.7)
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = (f32(2, 3, 3, 20).to(dtype) for _ in range(2))
+        cases += [("int8_quantize", (a, None, amax)),
+                  ("int8_quantize", (a, b, amax))]
     return cases
 
 
@@ -258,7 +263,7 @@ def test_op_fake_agrees_with_cpu(name, args):
 def test_every_kernel_is_an_op():
     assert OP_NAMES == ("fused_decode", "weighted_mean_shift",
                         "int8_gemm_requant", "int8_conv_requant",
-                        "int8_dwconv_requant")
+                        "int8_dwconv_requant", "int8_quantize")
     for name in OP_NAMES:
         op = getattr(torch.ops.densereg, name).default
         assert torch._C._dispatch_has_kernel_for_dispatch_key(
