@@ -209,6 +209,7 @@ from densereg_torch.ops import _build
 from densereg_torch.ops import fused_decode as fd
 from densereg_torch.ops import int8_dwconv as dw
 from densereg_torch.ops import int8_gemm as k3
+from densereg_torch.ops import int8_layout
 from densereg_torch.ops import int8_quantize as iq
 from densereg_torch.ops import meanshift as k2
 from densereg_torch.preprocess import (
@@ -641,7 +642,7 @@ def int_mm_call(x_q, w_q, scale, bias, s_y, relu, emit_q, emit_f, f_dtype):
         y = torch._int_mm(a, b)[:, :n].float() * scale + bias
         if relu:
             y = torch.clamp_min(y, 0.0)
-        q = k3.quantize(y, s_y) if emit_q else None
+        q = int8_layout.quantize(y, s_y) if emit_q else None
         f = y.to(f_dtype) if emit_f else None
         return q, f
     return call
@@ -836,9 +837,9 @@ def dw_library_call(x_q, w_packed, k, scale, bias, s_y, relu, emit_q, emit_f,
 
     def call():
         acc = F.conv2d(xf, wf, padding=k // 2, groups=c).permute(0, 2, 3, 1)
-        return k3.requant_reference(acc, scale, bias, s_y, relu=relu,
-                                    emit_q=emit_q, emit_f=emit_f,
-                                    f_dtype=f_dtype)
+        return int8_layout.requant_reference(acc, scale, bias, s_y,
+                                             relu=relu, emit_q=emit_q,
+                                             emit_f=emit_f, f_dtype=f_dtype)
     return call
 
 

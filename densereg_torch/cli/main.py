@@ -386,22 +386,9 @@ def cmd_export(args) -> int:
     artifact (weights + crop/forward/decode; see densereg_torch.export)."""
     import os
 
-    from densereg_torch.config import model_desc
     from densereg_torch.export import export_predictor
-    from densereg_torch.serving import Predictor
 
-    train_spec, test_spec = _specs(args)
-    net, tcfg = _configs(args, test_spec.jnt_num)
-    desc = model_desc(train_spec.name, train_spec.subset, net, args.is_aug,
-                      args.net_module)
-    train_dir = os.path.join(args.base_dir, desc)
-    buckets = (tuple(int(v) for v in args.batch_buckets.split(",") if v)
-               if args.batch_buckets else None)
-    pred = Predictor.from_checkpoint(
-        train_dir, net, test_spec.cfg, step=args.selected_step,
-        max_batch=args.batch_size, quantize=args.quantize,
-        use_ema=args.use_ema, use_best=args.use_best,
-        batch_buckets=buckets, device=args.device)
+    pred, desc = _checkpoint_predictor(args)
     out = args.out or f"{desc}.drexpt"
     export_predictor(pred, out, platforms=tuple(args.platforms.split(",")))
     print(f"[export] wrote {out} ({os.path.getsize(out) / 1e6:.1f} MB, "
@@ -411,15 +398,10 @@ def cmd_export(args) -> int:
     return 0
 
 
-def _load_predictor(args):
-    """Shared predictor loader for the serving surfaces (predict/serve):
-    a ``torch.export`` artifact if ``--artifact`` is given, otherwise the
-    checkpoint selected by the common flags, on ``--device``."""
+def _checkpoint_predictor(args):
+    """The live predictor of the checkpoint that the common flags select,
+    on ``--device``, and the run's directory name."""
     import os
-
-    if args.artifact:
-        from densereg_torch.export import load_exported
-        return load_exported(args.artifact, device=args.device)
 
     from densereg_torch.config import model_desc
     from densereg_torch.serving import Predictor
@@ -436,7 +418,17 @@ def _load_predictor(args):
         step=args.selected_step, max_batch=args.batch_size,
         quantize=args.quantize, use_ema=args.use_ema,
         use_best=args.use_best, batch_buckets=buckets or None,
-        device=args.device)
+        device=args.device), desc
+
+
+def _load_predictor(args):
+    """Shared predictor loader for the serving surfaces (predict/serve):
+    a ``torch.export`` artifact if ``--artifact`` is given, otherwise the
+    checkpoint selected by the common flags, on ``--device``."""
+    if args.artifact:
+        from densereg_torch.export import load_exported
+        return load_exported(args.artifact, device=args.device)
+    return _checkpoint_predictor(args)[0]
 
 
 def cmd_serve(args) -> int:
@@ -451,14 +443,10 @@ def cmd_serve(args) -> int:
     # warm up every (batch bucket, dtype) program, the kernels' build
     # included, BEFORE accepting traffic, so that the first client never
     # pays for it inside its request latency
-    hw = getattr(pred, "frame_hw", None)
-    if hw is None:
-        hw = (int(pred.camera.h), int(pred.camera.w))
     t0 = time.time()
     pred.warmup(with_u16=pred.accepts_u16)
-    buckets = getattr(pred, "batch_buckets", (pred.max_batch,))
-    print(f"[serve] compiled buckets={list(buckets)} frame_hw={hw} "
-          f"in {time.time() - t0:.1f}s")
+    print(f"[serve] compiled buckets={list(pred.batch_buckets)} "
+          f"frame_hw={pred.frame_hw} in {time.time() - t0:.1f}s")
 
     server = Server(pred, args.socket, window_ms=args.window_ms,
                     max_queue=args.max_queue)

@@ -426,17 +426,17 @@ void launch(int path, const View4* v, const float* cfgs, const float* coms,
 
 // strides: 16 element strides, (b, h, w, c) of hm, hm3, um and dm in turn;
 // 1 <= num_pt <= 8, num_pt <= h * w. Picks the staging path from the
-// layouts of hm and hm3 and launches on `stream`. Returns the path (0
-// planes, 1 hm_pixels, 2 hm3_pixels, 3 pixels, 4 strided) on success, else
-// -cudaError_t (the launch's cudaGetLastError(), or cudaErrorInvalidValue
-// for another num_pt).
+// layouts of hm and hm3, writes it to *path_out (0 planes, 1 hm_pixels, 2
+// hm3_pixels, 3 pixels, 4 strided) and launches on `stream`. Returns the
+// launch's cudaGetLastError(), or cudaErrorInvalidValue for another num_pt.
 extern "C" int fused_decode_launch(const float* hm, const float* hm3,
                                    const float* um, const float* dm,
                                    const long long* strides,
                                    const float* cfgs, const float* coms,
                                    float* out, int b, int h, int w, int J,
                                    int num_pt, int num_it, float inv_sigma,
-                                   int grid, float grid_hi, void* stream) {
+                                   int grid, float grid_hi, int* path_out,
+                                   void* stream) {
   const float* ptrs[4] = {hm, hm3, um, dm};
   View4 v[4];
   for (int i = 0; i < 4; ++i) {
@@ -464,9 +464,9 @@ extern "C" int fused_decode_launch(const float* hm, const float* hm3,
     DENSEREG_K1_CASE(7)
     DENSEREG_K1_CASE(8)
     default:
-      return -(int)cudaErrorInvalidValue;
+      return (int)cudaErrorInvalidValue;
   }
 #undef DENSEREG_K1_CASE
-  const cudaError_t err = cudaGetLastError();
-  return err == cudaSuccess ? path : -(int)err;
+  *path_out = path;
+  return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // The requantisation epilogue that the int8 convolutions share: K3
 // (int8_gemm.cu) and the depthwise convolution (int8_dwconv.cu). Semantics
-// oracle: densereg_torch.ops.int8_gemm.requant_reference.
+// oracle: densereg_torch.ops.int8_layout.requant_reference.
 //
 //   y = relu?(float(acc) * scale + bias)         (float32)
 //   q = clamp(rint(y / s_y), -127, 127)          (int8)

@@ -27,6 +27,7 @@ from densereg_torch.preprocess import (
     preprocess_batch_from_bbx,
     preprocess_batch_from_pose,
 )
+from densereg_torch.utils.device import to_device
 from densereg_torch.utils.profiling import span
 from densereg_torch.wire import check_wire, decode_dm_u16, encode_dm_u16
 
@@ -53,14 +54,6 @@ def _load_frames(reader, idxs, spec: DatasetSpec):
     return depth, pose, names, bbx
 
 
-def _to_device(a, device: torch.device) -> torch.Tensor:
-    t = torch.as_tensor(np.ascontiguousarray(a) if isinstance(a, np.ndarray)
-                        else a)
-    if device.type == "cuda":
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)
-
-
 def _host_crop(out, wire_dtype: str):
     """A host-preprocessed batch ``(dm, pose, cfgs, coms)`` as it crosses
     the bus: as it is (``float32``), or with ``dm`` encoded as the uint16
@@ -76,11 +69,11 @@ def _from_wire(item, wire_dtype: str, device: torch.device):
     coms)``, the uint16 wire decoded there."""
     if wire_dtype == "uint16":
         q, scale = item[:2]
-        dm = decode_dm_u16(_to_device(q, device), _to_device(scale, device))
+        dm = decode_dm_u16(to_device(q, device), to_device(scale, device))
         rest = item[2:]
     else:
-        dm, rest = _to_device(item[0], device), item[1:]
-    return (dm,) + tuple(_to_device(x, device) for x in rest)
+        dm, rest = to_device(item[0], device), item[1:]
+    return (dm,) + tuple(to_device(x, device) for x in rest)
 
 
 class InputPipeline:
@@ -204,7 +197,7 @@ class InputPipeline:
                                                       self.device)
                 else:
                     dm, pose, cfgs, coms = self._crop(
-                        *(_to_device(x, self.device) for x in item),
+                        *(to_device(x, self.device) for x in item),
                         self._cfg)
             yield {"dm": dm.reshape(sub, b, h, w, 1),
                    "pose": pose.reshape(sub, b, -1),
@@ -303,12 +296,12 @@ class TestPipeline:
     def _emit(self, buf_d, buf_p, buf_n, buf_b) -> dict:
         h, w = self.input_hw
         crop_on = torch.device("cpu") if self.host_preprocess else self.device
-        dms = _to_device(np.stack(buf_d), crop_on)
-        poses = _to_device(np.stack(buf_p), crop_on)
+        dms = to_device(np.stack(buf_d), crop_on)
+        poses = to_device(np.stack(buf_p), crop_on)
         cfg = self._host_cfg if self.host_preprocess else self._cfg
         if self.spec.uses_bbx and buf_b:
             out = preprocess_batch_from_bbx(
-                dms, poses, _to_device(np.stack(buf_b), crop_on), cfg, h, w)
+                dms, poses, to_device(np.stack(buf_b), crop_on), cfg, h, w)
         else:
             out = preprocess_batch_from_pose(dms, poses, cfg, h, w,
                                              self.spec.fixed_bg_threshold)

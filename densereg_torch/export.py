@@ -38,16 +38,17 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from densereg_torch.host_loop import HostLoop, bucket_ladder
+
 _MAGIC = b"DRTORCH1"
-_DTYPES = {"f32": (np.float32, torch.float32), "u16": (np.uint16, torch.uint16)}
 
 
 def _program(module, bucket: int, frame_hw, dtype: str, device) -> bytes:
     """``torch.export`` of ``module`` at one (bucket, frame dtype), as
     bytes."""
     h, w = frame_hw
-    frames = torch.zeros((bucket, h, w, 1), dtype=_DTYPES[dtype][1],
-                         device=device)
+    frames = torch.zeros((bucket, h, w, 1), device=device, dtype=(
+        torch.uint16 if dtype == "u16" else torch.float32))
     bbxs = torch.zeros((bucket, 5), dtype=torch.float32, device=device)
     with torch.no_grad():
         ep = torch.export.export(module, (frames, bbxs))
@@ -85,11 +86,8 @@ def export_predictor(predictor, path: str,
     h, w = frame_hw if frame_hw is not None else (int(cam.h), int(cam.w))
     b = predictor.max_batch
     if batch_buckets is None:
-        batch_buckets = getattr(predictor, "batch_buckets", None)
-    buckets = sorted({int(v) for v in (batch_buckets or ())} | {b})
-    if buckets[0] < 1 or buckets[-1] > b:
-        raise ValueError(f"batch_buckets must lie in [1, max_batch={b}]; "
-                         f"got {buckets}")
+        batch_buckets = predictor.batch_buckets
+    buckets = bucket_ladder(batch_buckets, b)
     if platforms is None:
         platforms = (predictor.device.type,)
     platforms = tuple(platforms)
@@ -147,13 +145,13 @@ def export_predictor(predictor, path: str,
             f.write(blob[4])
 
 
-class ExportedPredictor:
+class ExportedPredictor(HostLoop):
     """Callable loaded from an export artifact: the surface of
     :class:`densereg_torch.serving.Predictor` (``max_batch``, ``frame_hw``,
-    ``num_joint``, ``camera``, ``batch_buckets``, ``accepts_u16``,
-    ``warmup``, ``_dispatch`` and the double-buffered ``__call__``) over
-    the loaded programs, so that ``densereg_torch.serve.Server`` serves it
-    unchanged."""
+    ``num_joint``, ``camera``, ``batch_buckets``, ``accepts_u16``, and
+    ``host_loop.HostLoop``'s ``warmup``, ``_dispatch`` and double-buffered
+    ``__call__``) over the loaded programs, so that
+    ``densereg_torch.serve.Server`` serves it unchanged."""
 
     def __init__(self, programs: dict, header: dict, device: torch.device):
         """``programs`` maps ``(batch, "f32"|"u16")`` to a loaded
@@ -175,64 +173,12 @@ class ExportedPredictor:
             torch.backends.cuda.matmul.allow_tf32 = False
         self._calls = {key: ep.module() for key, ep in programs.items()}
 
-    def warmup(self, with_u16: bool = True) -> None:
-        """Run every loaded (bucket, dtype) program once, so that no
-        request pays for the first launch or the kernels' build."""
-        h, w = self.frame_hw
-        bbx = np.asarray([[0, 0, h, w, 500.0]], np.float32)
-        for bucket, dt in self._calls:
-            if dt == "u16" and not with_u16:
-                continue
-            self._dispatch(np.zeros((bucket, h, w, 1), _DTYPES[dt][0]),
-                           np.repeat(bbx, bucket, 0)).cpu()
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
-
-    def _dispatch(self, frames: np.ndarray, bbxs: np.ndarray) -> torch.Tensor:
-        """Pad one chunk to the smallest bucket that fits and enqueue its
-        program; returns the device result, with bucket rows, without
-        waiting."""
-        b = frames.shape[0]
-        dt = "f32"
-        if frames.dtype == np.uint16 and self.accepts_u16:
-            dt = "u16"
-        else:
-            frames = frames.astype(np.float32, copy=False)
-        bucket = next(v for v in self.batch_buckets if v >= b)
-        pad = bucket - b
-        if pad:
-            frames = np.concatenate([frames, np.repeat(frames[-1:], pad, 0)])
-            bbxs = np.concatenate([bbxs, np.repeat(bbxs[-1:], pad, 0)])
+    def _predict(self, frames: torch.Tensor,
+                 bbxs: torch.Tensor) -> torch.Tensor:
+        """The loaded program of the chunk's (bucket, frame dtype)."""
+        dt = "u16" if frames.dtype == torch.uint16 else "f32"
         with torch.inference_mode():
-            return self._calls[(bucket, dt)](
-                self._to_device(frames),
-                self._to_device(np.asarray(bbxs, np.float32)))
-
-    def __call__(self, frames_mm: np.ndarray, bbxs: np.ndarray) -> np.ndarray:
-        """As ``Predictor.__call__``: (b, H, W[, 1]) frames and (b, 5)
-        boxes -> (b, 3j) xyz mm, in chunks of ``max_batch``, chunk k+1
-        enqueued before chunk k's result is fetched."""
-        frames = np.asarray(frames_mm)
-        if frames.dtype != np.uint16 or not self.accepts_u16:
-            frames = frames.astype(np.float32, copy=False)
-        if frames.ndim == 3:
-            frames = frames[..., None]
-        b = frames.shape[0]
-        if b == 0:
-            return np.zeros((0, 3 * self.num_joint), np.float32)
-        out, pending = [], None
-        for i in range(0, b, self.max_batch):
-            chunk = frames[i:i + self.max_batch]
-            dev = self._dispatch(chunk, bbxs[i:i + self.max_batch])
-            if pending is not None:
-                out.append(pending[0][:pending[1]].cpu().numpy())
-            pending = (dev, len(chunk))
-        out.append(pending[0][:pending[1]].cpu().numpy())
-        return out[0] if len(out) == 1 else np.concatenate(out)
+            return self._calls[(frames.shape[0], dt)](frames, bbxs)
 
 
 def read_artifact(path: str):

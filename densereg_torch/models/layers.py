@@ -44,9 +44,9 @@ from densereg_torch.ops.int8_gemm import (
     int8_conv_requant,
     int8_gemm_requant,
     pack_weight,
-    same_pads,
 )
 from densereg_torch.ops import int8_quantize as quantize_op
+from densereg_torch.ops.int8_layout import same_pads
 from densereg_torch.ops.int8_quantize import act_scale, int8_quantize
 from densereg_torch.utils.profiling import span
 

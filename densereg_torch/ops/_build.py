@@ -1,4 +1,5 @@
-"""Build the CUDA sources under ``densereg_torch/csrc`` and load them.
+"""Build the CUDA sources under ``densereg_torch/csrc``, load them, and
+launch their kernels: the one launch seam of the port's hand-written kernels.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface; it is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
@@ -16,6 +17,9 @@ subnormals, as its plain version does. The depthwise and the quantize
 kernels are built with ``-Xptxas -v``: the compiler's output (registers,
 spills, shared memory of each kernel) is kept beside the library
 (:func:`build_log`).
+
+Each wrapper under ``ops/`` launches its kernel through a :class:`Kernel`
+and registers its custom op through an :class:`Op`.
 """
 
 from __future__ import annotations
@@ -45,8 +49,9 @@ SOURCE_FLAGS = {"fused_decode": ("-ftz=true",), "meanshift": ("-ftz=true",),
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
-# the current stream's raw handle, without building a torch.cuda.Stream
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+# a device index's current stream, raw, without a torch.cuda.Stream object
+_raw_stream = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
+               or (lambda index: torch.cuda.current_stream(index).cuda_stream))
 
 
 def nvcc_path() -> str:
@@ -142,17 +147,74 @@ def load(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
-def stream(device) -> int:
-    """The raw handle of ``device``'s current CUDA stream, for a launch."""
-    if _raw_stream is not None:
-        return _raw_stream(device.index)
-    return torch.cuda.current_stream(device).cuda_stream
+class Kernel:
+    """The C entry ``entry`` of ``csrc/<source>.cu``, bound to ``argtypes``
+    on the first launch. Every entry returns a ``cudaError_t`` and takes the
+    raw stream last, after an ``int*`` for the path it took where it has
+    ``paths``. A launch adds one to ``counter.launches`` and to
+    ``counter.launches_by_path[path]`` (like them, the one path int is not
+    kept apart for two threads); an error raises ``RuntimeError`` named
+    after ``counter``, with ``notes[err]`` appended."""
+
+    def __init__(self, source: str, entry: str, argtypes, counter,
+                 paths=None, notes=None):
+        self.source, self.entry = source, entry
+        self.argtypes = list(argtypes)
+        self.tail = ()
+        if paths:
+            self.argtypes.append(ctypes.POINTER(ctypes.c_int))
+            self.path = ctypes.c_int(-1)
+            self.tail = (ctypes.byref(self.path),)
+        self.argtypes.append(ctypes.c_void_p)
+        self.counter, self.paths, self.notes = counter, paths, notes or {}
+        self._fn = None
+        counter.launches = 0
+        if paths:
+            counter.launches_by_path = dict.fromkeys(paths, 0)
+
+    def __call__(self, device: torch.device, args: tuple) -> None:
+        """Launch with ``args`` on ``device``'s current stream, entering the
+        device only where it is not the current one."""
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(load(self.source), self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+        if device.index == torch.cuda.current_device():
+            err = fn(*args, *self.tail, _raw_stream(device.index))
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, *self.tail, _raw_stream(device.index))
+        if err:
+            raise RuntimeError(f"{self.counter.__name__}: kernel launch "
+                               f"failed with cudaError_t {err}"
+                               + self.notes.get(err, ""))
+        counter = self.counter
+        counter.launches += 1
+        if self.paths:
+            counter.launches_by_path[self.paths[self.path.value]] += 1
 
 
-def eager(t: torch.Tensor) -> bool:
-    """True where a wrapper calls its custom op's CUDA implementation
-    itself: a CUDA tensor outside a trace (``torch.export``,
-    ``torch.compile``). The op's dispatch, the route of a trace and of CPU
-    tensors, costs tens of microseconds of host time a call and reaches
-    the same function."""
-    return t.is_cuda and not torch.compiler.is_compiling()
+class Op:
+    """A kernel's ``torch.library`` custom op ``densereg::<name>``: ``cuda``
+    (the kernel's launch) on CUDA tensors, ``cpu`` (its plain form) on CPU
+    tensors, ``fake`` (the outputs' shapes, dtypes and strides) in a trace;
+    ``cuda``'s annotations give the op's schema."""
+
+    def __init__(self, name: str, cuda, cpu, fake):
+        self.cuda = cuda
+        self.op = torch.library.custom_op(f"densereg::{name}", cuda,
+                                          mutates_args=(),
+                                          device_types="cuda")
+        self.op.register_kernel("cpu", cpu)
+        self.op.register_fake(fake)
+
+    def impl_for(self, t: torch.Tensor):
+        """What a wrapper calls for its first tensor ``t``: ``cuda`` itself
+        for a CUDA tensor outside a trace (``torch.export``,
+        ``torch.compile``), since the op's dispatch costs tens of
+        microseconds of host time a call and reaches the same function;
+        else the op."""
+        if t.is_cuda and not torch.compiler.is_compiling():
+            return self.cuda
+        return self.op

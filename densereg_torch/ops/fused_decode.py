@@ -1,11 +1,8 @@
 """Fused vote decode on CUDA: ``csrc/fused_decode.cu``.
 
 Replaces the TPU kernel ``densereg_tpu/ops/fused_decode.py::fused_decode``.
-The kernel is the ``torch.library`` custom op ``densereg::fused_decode``, so
-that an exported program (``densereg_torch.export``) holds it: on a CUDA
-tensor the op launches the hand-written kernel (or raises); on a CPU tensor
-it runs :func:`fused_decode_reference`, the plain torch decode that is the
-kernel's oracle.
+Its custom op (``ops._build.Op``) is ``densereg::fused_decode``; its plain
+form, :func:`fused_decode_reference`, is the kernel's oracle.
 """
 
 from __future__ import annotations
@@ -30,17 +27,8 @@ PATHS = ("planes", "hm_pixels", "hm3_pixels", "pixels", "strided")
 
 _ARGTYPES = ([ctypes.c_void_p] * 8
              + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_void_p])
+                                     ctypes.c_float])
 _strides = {}               # stride tuples -> their ctypes array
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_decode")
-    fn = lib.fused_decode_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def fused_decode_reference(hms, hm3s, ums, tiny_dms, cfgs, coms,
@@ -57,29 +45,6 @@ def fused_decode_reference(hms, hm3s, ums, tiny_dms, cfgs, coms,
     return decode.decode_plain(hms, hm3s, ums, tiny_dms, cfgs, coms, cfg)[0]
 
 
-def _check(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt):
-    b, h, w, j = hms.shape
-    want = {"hms": (b, h, w, j), "hm3s": (b, h, w, j), "ums": (b, h, w, 3 * j),
-            "tiny_dms": (b, h, w, 1), "cfgs": (b, 6), "coms": (b, 3)}
-    args = {"hms": hms, "hm3s": hm3s, "ums": ums, "tiny_dms": tiny_dms,
-            "cfgs": cfgs, "coms": coms}
-    for name, t in args.items():
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"fused_decode: {name} has shape "
-                             f"{tuple(t.shape)}, expected {want[name]}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_decode: {name} must be float32, "
-                            f"got {t.dtype}")
-        if t.device != hms.device:
-            raise ValueError(f"fused_decode: {name} is on {t.device}, "
-                             f"hms on {hms.device}")
-    if not 1 <= j <= MAX_JOINTS:
-        raise ValueError(f"fused_decode: 1..{MAX_JOINTS} joints, got {j}")
-    if not 1 <= num_pt <= min(MAX_PICKS, h * w):
-        raise ValueError(f"fused_decode: num_pt must lie in "
-                         f"[1, {min(MAX_PICKS, h * w)}], got {num_pt}")
-
-
 def fused_decode(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt: int = 5,
                  num_it: int = 10, band_width: float = 0.4,
                  vote_grid: int = GRID) -> torch.Tensor:
@@ -94,9 +59,8 @@ def fused_decode(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt: int = 5,
     ``fused_decode.launches_by_path[path]``, ``path`` one of
     :data:`PATHS`.
     """
-    impl = _fused_decode_cuda if _build.eager(hms) else fused_decode_op
-    return impl(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt, num_it,
-                band_width, vote_grid)
+    return _OP.impl_for(hms)(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt,
+                             num_it, band_width, vote_grid)
 
 
 def _fused_decode_cuda(hms: torch.Tensor, hm3s: torch.Tensor,
@@ -106,20 +70,28 @@ def _fused_decode_cuda(hms: torch.Tensor, hm3s: torch.Tensor,
                        vote_grid: int) -> torch.Tensor:
     """The op's CUDA implementation: one launch of the kernel."""
     b, h, w, j = hms.shape
+    args = (hms, hm3s, ums, tiny_dms, cfgs, coms)
+    want = ((b, h, w, j), (b, h, w, 3 * j), (b, h, w, 1), (b, 6), (b, 3))
+    if (hm3s.shape, ums.shape, tiny_dms.shape, cfgs.shape,
+            coms.shape) != want:
+        raise ValueError(f"fused_decode: hm3s, ums, tiny_dms, cfgs, coms "
+                         f"have shapes {[tuple(t.shape) for t in args[1:]]}"
+                         f", expected {list(want)} for hms {tuple(hms.shape)}")
+    if not (hms.dtype == hm3s.dtype == ums.dtype == tiny_dms.dtype
+            == cfgs.dtype == coms.dtype == torch.float32):
+        raise TypeError(f"fused_decode: every input must be float32, got "
+                        f"{[t.dtype for t in args]}")
     dev = hms.device
-    f32 = torch.float32
-    if not (hm3s.shape == hms.shape and ums.shape == (b, h, w, 3 * j)
-            and tiny_dms.shape == (b, h, w, 1) and cfgs.shape == (b, 6)
-            and coms.shape == (b, 3) and hms.dtype == f32
-            and hm3s.dtype == f32 and ums.dtype == f32
-            and tiny_dms.dtype == f32 and cfgs.dtype == f32
-            and coms.dtype == f32 and hm3s.device == dev
-            and ums.device == dev and tiny_dms.device == dev
-            and cfgs.device == dev and coms.device == dev
-            and 1 <= j <= MAX_JOINTS and 1 <= num_pt <= MAX_PICKS
-            and num_pt <= h * w):
-        _check(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt)
-    out = torch.empty((b, j, 3), dtype=f32, device=dev)
+    if not (dev == hm3s.device == ums.device == tiny_dms.device
+            == cfgs.device == coms.device):
+        raise ValueError(f"fused_decode: inputs on "
+                         f"{[str(t.device) for t in args]}, not one device")
+    if not 1 <= j <= MAX_JOINTS:
+        raise ValueError(f"fused_decode: 1..{MAX_JOINTS} joints, got {j}")
+    if not 1 <= num_pt <= min(MAX_PICKS, h * w):
+        raise ValueError(f"fused_decode: num_pt must lie in "
+                         f"[1, {min(MAX_PICKS, h * w)}], got {num_pt}")
+    out = hms.new_empty((b, j, 3))
     if b == 0:
         return out
     cfgs = cfgs.contiguous()
@@ -129,43 +101,21 @@ def _fused_decode_cuda(hms: torch.Tensor, hm3s: torch.Tensor,
     if strides is None:
         strides = _strides[key] = (ctypes.c_longlong * 16)(
             *(s for t in key for s in t))
-    args = (hms.data_ptr(), hm3s.data_ptr(), ums.data_ptr(),
-            tiny_dms.data_ptr(), strides, cfgs.data_ptr(), coms.data_ptr(),
-            out.data_ptr(), b, h, w, j, num_pt, num_it,
-            -1.0 / (2.0 * band_width * band_width), vote_grid,
-            float(vote_grid) - 0.1)
-    launch = _lib().fused_decode_launch
-    if dev.index == torch.cuda.current_device():
-        path = launch(*args, _build.stream(dev))
-    else:
-        with torch.cuda.device(dev):
-            path = launch(*args, _build.stream(dev))
-    if path < 0:
-        raise RuntimeError(f"fused_decode: kernel launch failed with "
-                           f"cudaError_t {-path}")
-    fused_decode.launches += 1
-    fused_decode.launches_by_path[PATHS[path]] += 1
+    _KERNEL(dev, (hms.data_ptr(), hm3s.data_ptr(), ums.data_ptr(),
+                  tiny_dms.data_ptr(), strides, cfgs.data_ptr(),
+                  coms.data_ptr(), out.data_ptr(), b, h, w, j, num_pt,
+                  num_it, -1.0 / (2.0 * band_width * band_width), vote_grid,
+                  float(vote_grid) - 0.1))
     return out
 
 
-fused_decode_op = torch.library.custom_op(
-    "densereg::fused_decode", _fused_decode_cuda, mutates_args=(),
-    device_types="cuda")
-
-
-@fused_decode_op.register_kernel("cpu")
-def _fused_decode_cpu(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt, num_it,
-                      band_width, vote_grid):
-    return fused_decode_reference(hms, hm3s, ums, tiny_dms, cfgs, coms,
-                                  num_pt, num_it, band_width, vote_grid)
-
-
-@fused_decode_op.register_fake
 def _fused_decode_fake(hms, hm3s, ums, tiny_dms, cfgs, coms, num_pt, num_it,
                        band_width, vote_grid):
     b, _, _, j = hms.shape
     return hms.new_empty((b, j, 3), dtype=torch.float32)
 
 
-fused_decode.launches = 0
-fused_decode.launches_by_path = dict.fromkeys(PATHS, 0)
+_OP = _build.Op("fused_decode", _fused_decode_cuda, fused_decode_reference,
+                _fused_decode_fake)
+_KERNEL = _build.Kernel("fused_decode", "fused_decode_launch", _ARGTYPES,
+                        fused_decode, paths=PATHS)

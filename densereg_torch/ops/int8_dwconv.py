@@ -5,10 +5,8 @@ The port's own kernel, in K3's family. It has no Pallas counterpart: the
 JAX package runs the depthwise convolutions of the ``um_v1_lite`` int8 net
 as XLA's grouped int8 convolution (``densereg_tpu/models/layers.py:237-244``,
 ``feature_group_count`` = C), which torch lacks on CUDA, and K3 takes no
-groups. :func:`int8_dwconv_requant` calls the custom op
-``densereg::int8_dwconv_requant``, which launches the hand-written kernel
-on CUDA tensors (or raises) and runs its plain version,
-:func:`int8_dwconv_requant_reference`, on CPU tensors.
+groups. Its custom op (``ops._build.Op``) is
+``densereg::int8_dwconv_requant``.
 
 The kernel is bound by bytes: at the card's byte rate an output may take
 about 18 instruction issues before the instructions, not the bytes, set
@@ -31,14 +29,15 @@ from typing import Optional, Tuple
 import torch
 
 from densereg_torch.ops import _build
-from densereg_torch.ops.int8_gemm import (
+from densereg_torch.ops.int8_layout import (
     F_KINDS,
-    _aligned,
-    _as_scale,
-    _emitted,
-    _filled,
-    _outputs,
-    _pad16,
+    aligned,
+    as_scale,
+    check_operands,
+    emitted,
+    filled,
+    outputs,
+    pad16,
     requant_reference,
     same_pads,
 )
@@ -56,16 +55,7 @@ SMS = 132               # streaming multiprocessors of an H100 SXM
 
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
-             + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("int8_dwconv")
-    fn = lib.dw_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+             + [ctypes.c_int] * 11)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +123,7 @@ def plan_launch(b: int, h: int, w: int, c: int, k: int) -> DwPlan:
     a tile for each SM, or for each 64 (image, pixel, 16-channel chunk)
     items where the call has fewer than ``64 * SMS``; where none has, the
     one with the most tiles. Cached: a wrapper call pays a lookup."""
-    nchunks = _pad16(c) // 16
+    nchunks = pad16(c) // 16
     want = min(SMS, max(1, b * h * w * nchunks // 64))
     fits = [t for t in TILES
             if t[0] <= max(h, 2) and t[1] <= max(-(-w // 4) * 4, 4)]
@@ -169,7 +159,7 @@ def pack_dw_weight(kernel_q: torch.Tensor) -> torch.Tensor:
     if kh != kw or one != 1:
         raise ValueError(f"pack_dw_weight: {tuple(kernel_q.shape)} is not a "
                          f"depthwise (k, k, 1, C) kernel")
-    w = kernel_q.new_zeros((kh * kw, _pad16(c)))
+    w = kernel_q.new_zeros((kh * kw, pad16(c)))
     w[:, :c] = kernel_q.reshape(kh * kw, c)
     return w
 
@@ -183,7 +173,7 @@ def int8_dwconv_requant_reference(x_q, w_packed, k: int, scale, bias,
                                   s_y=None, **kw):
     """Plain form of :func:`int8_dwconv_requant`: the int32 sum over the
     k x k shifted slices of the zero-padded input, then
-    ``int8_gemm.requant_reference``."""
+    ``int8_layout.requant_reference``."""
     b, h, w, c = x_q.shape
     taps = _taps(w_packed, k, c).int()
     ph, pw = same_pads(h, k, 1), same_pads(w, k, 1)
@@ -205,7 +195,7 @@ def int8_dwconv_requant(x_q, w_packed, k: int, scale, bias, s_y=None, *,
     :func:`pack_dw_weight` ``w_packed`` (k * k, Cp), then K3's epilogue
     (``int8_gemm.int8_gemm_requant``'s arguments and checks): returns
     ``(q, f)`` as ``(b, h, w, C)``; on the card ``q``'s pixels lie ``Cp``
-    bytes apart, as K3 and ``int8_gemm.quantize(pitch16=True)`` lay them
+    bytes apart, as K3 and ``int8_layout.quantize(pitch16=True)`` lay them
     out, so that K3 reads them in place.
 
     On the card the kernel copies whole 16-byte chunks of each pixel with
@@ -217,29 +207,20 @@ def int8_dwconv_requant(x_q, w_packed, k: int, scale, bias, s_y=None, *,
         raise ValueError(f"int8_dwconv_requant: x {tuple(x_q.shape)} is not "
                          f"NHWC or w {tuple(w_packed.shape)} not packed")
     b, h, w, c = x_q.shape
-    if tuple(w_packed.shape) != (k * k, _pad16(c)):
+    if tuple(w_packed.shape) != (k * k, pad16(c)):
         raise ValueError(f"int8_dwconv_requant: w {tuple(w_packed.shape)} "
                          f"is not pack_dw_weight of a {k}x{k} depthwise "
                          f"kernel over {c} channels")
-    if x_q.dtype != torch.int8 or w_packed.dtype != torch.int8:
-        raise TypeError("int8_dwconv_requant: x and w must be int8")
-    for name, t in (("scale", scale), ("bias", bias)):
-        if t.shape != (c,) or t.dtype != torch.float32:
-            raise ValueError(f"int8_dwconv_requant: {name} must be ({c},) "
-                             f"float32, got {tuple(t.shape)} {t.dtype}")
-    if not (emit_q or emit_f):
-        raise ValueError("int8_dwconv_requant: need emit_q or emit_f")
-    if emit_f and f_dtype not in F_KINDS:
-        raise TypeError(f"int8_dwconv_requant: f_dtype must be float32 or "
-                        f"bfloat16, got {f_dtype}")
+    check_operands("int8_dwconv_requant", x_q, w_packed, c, scale, bias,
+                   emit_q, emit_f, f_dtype)
     if x_q.numel() < 1:
         raise ValueError(f"int8_dwconv_requant: empty input "
                          f"{tuple(x_q.shape)}")
     if emit_q:
-        s_y = _as_scale(s_y, x_q.device)
-    impl = _int8_dwconv_cuda if _build.eager(x_q) else int8_dwconv_requant_op
-    return _emitted(*impl(x_q, w_packed, k, scale, bias, s_y, relu, emit_q,
-                          emit_f, f_dtype), emit_q, emit_f)
+        s_y = as_scale(s_y, x_q.device)
+    return emitted(*_OP.impl_for(x_q)(x_q, w_packed, k, scale, bias, s_y,
+                                      relu, emit_q, emit_f, f_dtype),
+                   emit_q, emit_f)
 
 
 def tensor_map_path(x_q: torch.Tensor) -> bool:
@@ -249,10 +230,7 @@ def tensor_map_path(x_q: torch.Tensor) -> bool:
     a time."""
     strides = x_q.stride()
     return (strides[3] == 1 and strides[2] >= x_q.shape[3]
-            and _aligned(x_q, *strides[:3]))
-
-
-_NOT_SUPPORTED = 801    # cudaErrorNotSupported
+            and aligned(x_q, *strides[:3]))
 
 
 def _int8_dwconv_cuda(x_q: torch.Tensor, w_packed: torch.Tensor, k: int,
@@ -270,12 +248,12 @@ def _int8_dwconv_cuda(x_q: torch.Tensor, w_packed: torch.Tensor, k: int,
         if t.device != dev:
             raise ValueError("int8_dwconv_requant: all operands on one "
                              "device")
-    if not (w_packed.is_contiguous() and _aligned(w_packed)):
+    if not (w_packed.is_contiguous() and aligned(w_packed)):
         raise ValueError("int8_dwconv_requant: w must be pack_dw_weight's "
                          "contiguous, 16-byte aligned tensor")
     strides = x_q.stride()
     scale, bias = scale.contiguous(), bias.contiguous()
-    q, f = _outputs(x_q, (b, h, w), c, emit_q, emit_f, f_dtype)
+    q, f = outputs(x_q, (b, h, w), c, emit_q, emit_f, f_dtype, True)
     sy_ptr = q_ptr = f_ptr = None
     f_vec = 0
     if emit_q:   # s_y: int8_dwconv_requant's 0-d float32 tensor on dev
@@ -284,44 +262,30 @@ def _int8_dwconv_cuda(x_q: torch.Tensor, w_packed: torch.Tensor, k: int,
         f_ptr = f.data_ptr()
         f_vec = 4 if c % 4 == 0 else 1
     plan = plan_launch(b, h, w, c, k)
-    args = (x_q.data_ptr(), *strides, int(tensor_map_path(x_q)), b, h, w,
-            c, k, w_packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            sy_ptr, q_ptr, _pad16(c), f_ptr,
-            F_KINDS[f_dtype] if emit_f else 0, f_vec, int(relu), plan.th,
-            plan.tw, plan.cb_log, plan.ipb_log, plan.tiles_x, plan.tiles_y,
-            plan.threads, plan.smem, _build.stream(dev))
-    if dev.index == torch.cuda.current_device():
-        err = _lib().dw_launch(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = _lib().dw_launch(*args)
-    if err != 0:
-        raise RuntimeError(f"int8_dwconv_requant: kernel launch failed with "
-                           f"cudaError_t {err}" + (
-                               " (the driver refused x's tensor map)"
-                               if err == _NOT_SUPPORTED else ""))
-    int8_dwconv_requant.launches += 1
+    _KERNEL(dev, (x_q.data_ptr(), *strides, int(tensor_map_path(x_q)), b,
+                  h, w, c, k, w_packed.data_ptr(), scale.data_ptr(),
+                  bias.data_ptr(), sy_ptr, q_ptr, pad16(c), f_ptr,
+                  F_KINDS[f_dtype] if emit_f else 0, f_vec, int(relu),
+                  plan.th, plan.tw, plan.cb_log, plan.ipb_log, plan.tiles_x,
+                  plan.tiles_y, plan.threads, plan.smem))
     return q, f
 
 
-int8_dwconv_requant_op = torch.library.custom_op(
-    "densereg::int8_dwconv_requant", _int8_dwconv_cuda, mutates_args=(),
-    device_types="cuda")
-
-
-@int8_dwconv_requant_op.register_kernel("cpu")
 def _int8_dwconv_requant_cpu(x_q, w_packed, k, scale, bias, s_y, relu,
                              emit_q, emit_f, f_dtype):
-    return _filled(*int8_dwconv_requant_reference(
+    return filled(*int8_dwconv_requant_reference(
         x_q, w_packed, k, scale, bias, s_y, relu=relu, emit_q=emit_q,
         emit_f=emit_f, f_dtype=f_dtype), x_q, f_dtype)
 
 
-@int8_dwconv_requant_op.register_fake
 def _int8_dwconv_requant_fake(x_q, w_packed, k, scale, bias, s_y, relu,
                               emit_q, emit_f, f_dtype):
-    return _outputs(x_q, x_q.shape[:3], x_q.shape[3], emit_q, emit_f,
-                    f_dtype)
+    return outputs(x_q, x_q.shape[:3], x_q.shape[3], emit_q, emit_f,
+                   f_dtype, x_q.is_cuda)
 
 
-int8_dwconv_requant.launches = 0
+_OP = _build.Op("int8_dwconv_requant", _int8_dwconv_cuda,
+                _int8_dwconv_requant_cpu, _int8_dwconv_requant_fake)
+_KERNEL = _build.Kernel(
+    "int8_dwconv", "dw_launch", _ARGTYPES, int8_dwconv_requant,
+    notes={801: " (the driver refused x's tensor map)"})  # NotSupported

@@ -11,11 +11,8 @@ Two entries launch the one kernel:
   convolution that reads the NHWC activation in place, with weights packed
   by :func:`pack_weight`.
 
-Each entry is a ``torch.library`` custom op (``densereg::int8_gemm_requant``,
-``densereg::int8_conv_requant``), so that an exported program holds it. On
-CUDA tensors each launches the hand-written kernel (or raises); on CPU
-tensors each runs its plain torch form (:func:`int8_gemm_requant_reference`,
-:func:`int8_conv_requant_reference`), the kernel's oracle.
+Each entry is a custom op (``ops._build.Op``: ``densereg::int8_gemm_requant``,
+``densereg::int8_conv_requant``) whose plain form is the kernel's oracle.
 """
 
 from __future__ import annotations
@@ -26,10 +23,21 @@ from typing import Optional, Tuple
 import torch
 
 from densereg_torch.ops import _build
+from densereg_torch.ops.int8_layout import (
+    F_KINDS,
+    aligned,
+    as_scale,
+    check_operands,
+    emitted,
+    filled,
+    outputs,
+    pad16,
+    requant_reference,
+    same_pads,
+)
 
 # |acc| <= 127 * 127 * K must fit in int32
 MAX_K = (2 ** 31 - 1) // (127 * 127)
-F_KINDS = {torch.float32: 1, torch.bfloat16: 2}
 # depth of the kernel's shared-memory ring of K tiles
 STAGES = 3
 
@@ -37,45 +45,7 @@ _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 11
              + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
              + [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
                                         ctypes.c_longlong]
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("int8_gemm")
-    fn = lib.k3_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def same_pads(size: int, window: int, stride: int):
-    """(before, after) padding of XLA's SAME for one spatial axis."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + window - size, 0)
-    return total // 2, total - total // 2
-
-
-def quantize(xf: torch.Tensor, s: torch.Tensor,
-             pitch16: bool = False) -> torch.Tensor:
-    """``clip(round(xf / s), -127, 127)`` as int8, with ``s`` a 0-d float32
-    tensor on ``xf``'s device. Dividing by a tensor (not by a Python number,
-    which PyTorch's CUDA kernels turn into a multiply by the reciprocal)
-    keeps the division IEEE on the card, so the card and the CPU round to
-    the same int8 step. ``pitch16`` returns a view whose rows (the last
-    axis) start every ``ceil(C / 16) * 16`` bytes, as the kernel's ``q``;
-    the bytes past C are left unwritten."""
-    r = torch.clamp(torch.round(xf.float() / s), -127, 127)
-    c = r.shape[-1]
-    if not pitch16 or c % 16 == 0:
-        return r.to(torch.int8)
-    out = torch.empty(r.shape[:-1] + (_pad16(c),), dtype=torch.int8,
-                      device=r.device)[..., :c]
-    return out.copy_(r)
+             + [ctypes.c_int] * 4)
 
 
 def im2col_nhwc(x: torch.Tensor, k: int, stride: int):
@@ -96,7 +66,7 @@ def im2col_nhwc(x: torch.Tensor, k: int, stride: int):
     xp = x.new_zeros((b, h + sum(ph), w + sum(pw), c))
     xp[:, ph[0]:ph[0] + h, pw[0]:pw[0] + w] = x
     kk = k * k * c
-    cols = x.new_empty((b, oh, ow, _pad16(kk)))
+    cols = x.new_empty((b, oh, ow, pad16(kk)))
     for i in range(k):
         for j in range(k):
             o = (i * k + j) * c
@@ -116,7 +86,7 @@ def pack_weight(kernel_q: torch.Tensor) -> torch.Tensor:
     to the int32 sums. ``w[:, :C].t()`` of a 1x1 kernel's is the dense
     entry's ``(K, N)`` operand."""
     kh, kw, c, n = kernel_q.shape
-    w = kernel_q.new_zeros((n, kh, kw, _pad16(c)))
+    w = kernel_q.new_zeros((n, kh, kw, pad16(c)))
     w[..., :c] = kernel_q.permute(3, 0, 1, 2)
     return w.reshape(n, -1)
 
@@ -145,22 +115,6 @@ def int8_gemm_requant_reference(x_q, w_q, scale, bias, s_y=None, *,
                              emit_q=emit_q, emit_f=emit_f, f_dtype=f_dtype)
 
 
-def requant_reference(acc, scale, bias, s_y=None, *, relu: bool = True,
-                      emit_q: bool = True, emit_f: bool = False,
-                      f_dtype=torch.bfloat16):
-    """The epilogue of the int8 kernels in plain torch, on exact integer
-    sums ``acc`` (any integer or float64 dtype) with the channels last:
-    ``y = relu?(float32(acc) * scale + bias)``, each operation rounded once,
-    then ``(q, f)`` as :func:`int8_gemm_requant` returns them."""
-    y = acc.float() * scale.float()
-    y = y + bias.float()
-    if relu:
-        y = torch.clamp_min(y, 0.0)
-    q = quantize(y, _as_scale(s_y, y.device)) if emit_q else None
-    f = y.to(f_dtype) if emit_f else None
-    return q, f
-
-
 def int8_conv_requant_reference(x_q, w_packed, k: int, stride: int, scale,
                                 bias, s_y=None, **kw):
     """Plain form of :func:`int8_conv_requant`: :func:`im2col_nhwc` and
@@ -172,23 +126,10 @@ def int8_conv_requant_reference(x_q, w_packed, k: int, stride: int, scale,
                                                       s_y, **kw))
 
 
-def _as_scale(s_y, device) -> torch.Tensor:
-    """``s_y`` as a 0-d float32 tensor on ``device``."""
-    if s_y is None:
-        raise ValueError("int8_gemm_requant: emit_q needs s_y")
-    if not isinstance(s_y, torch.Tensor):
-        return torch.full((), float(s_y), dtype=torch.float32, device=device)
-    return s_y.reshape(()).to(device=device, dtype=torch.float32)
-
-
 def _check(x_q, w_q, n, k, scale, bias, emit_q, emit_f, f_dtype):
     """What both entries require; ``k`` is the K the kernel runs over."""
-    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
-        raise TypeError("int8_gemm_requant: x and w must be int8")
-    for name, t in (("scale", scale), ("bias", bias)):
-        if t.shape != (n,) or t.dtype != torch.float32:
-            raise ValueError(f"int8_gemm_requant: {name} must be ({n},) "
-                             f"float32, got {tuple(t.shape)} {t.dtype}")
+    check_operands("int8_gemm_requant", x_q, w_q, n, scale, bias, emit_q,
+                   emit_f, f_dtype)
     for t in (w_q, scale, bias):
         if t.device != x_q.device:
             raise ValueError("int8_gemm_requant: all operands on one device")
@@ -196,44 +137,6 @@ def _check(x_q, w_q, n, k, scale, bias, emit_q, emit_f, f_dtype):
         raise ValueError(f"int8_gemm_requant: M, N >= 1 and 1 <= K <= "
                          f"{MAX_K}, got M x K = {tuple(x_q.shape)}, K={k}, "
                          f"N={n}")
-    if not (emit_q or emit_f):
-        raise ValueError("int8_gemm_requant: need emit_q or emit_f")
-    if emit_f and f_dtype not in F_KINDS:
-        raise TypeError(f"int8_gemm_requant: f_dtype must be float32 or "
-                        f"bfloat16, got {f_dtype}")
-
-
-def _aligned(t: torch.Tensor, *strides: int) -> bool:
-    return t.data_ptr() % 16 == 0 and all(s % 16 == 0 for s in strides)
-
-
-def _outputs(ref: torch.Tensor, lead, n: int, emit_q: bool, emit_f: bool,
-             f_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """New ``(q, f)`` of shape ``lead + (N,)`` on ``ref``'s device, as the
-    kernel (CUDA) or the plain version (CPU) lays them out: on the card q's
-    rows start every ``ceil(N / 16) * 16`` bytes. The one not asked for is
-    an empty ``(0,)`` tensor: a custom op returns a fixed number of
-    tensors. Both the implementations and the fake of each entry allocate
-    through here, so that their layouts agree."""
-    lead = tuple(lead)
-    if not emit_q:
-        q = ref.new_empty((0,), dtype=torch.int8)
-    elif ref.is_cuda:
-        q = ref.new_empty(lead + (_pad16(n),), dtype=torch.int8)[..., :n]
-    else:
-        q = ref.new_empty(lead + (n,), dtype=torch.int8)
-    f = ref.new_empty(lead + (n,) if emit_f else (0,), dtype=f_dtype)
-    return q, f
-
-
-def _filled(q, f, ref, f_dtype):
-    """A plain version's ``(q, f)`` with each None an empty ``(0,)``
-    tensor, as the custom ops return them."""
-    if q is None:
-        q = ref.new_empty((0,), dtype=torch.int8)
-    if f is None:
-        f = ref.new_empty((0,), dtype=f_dtype)
-    return q, f
 
 
 def _launch(x, strides, geom, w, ldw, kw, n, scale, bias, s_y, relu,
@@ -243,14 +146,12 @@ def _launch(x, strides, geom, w, ldw, kw, n, scale, bias, s_y, relu,
     Returns ``(q, f)`` as ``(b * oh * ow, N)`` views, q with a 16-byte row
     pitch (each an empty ``(0,)`` tensor where not asked for)."""
     b, _, _, oh, ow = geom[:5]
-    dev = x.device
     scale = scale.contiguous()
     bias = bias.contiguous()
-    q, f = _outputs(x, (b * oh * ow,), n, emit_q, emit_f, f_dtype)
+    q, f = outputs(x, (b * oh * ow,), n, emit_q, emit_f, f_dtype, True)
     sy_ptr = q_ptr = f_ptr = None
     ldq = ldf = f_vec = 0
-    if emit_q:
-        s_y = _as_scale(s_y, dev)
+    if emit_q:   # s_y: the entry's 0-d float32 tensor on x's device
         ldq = q.stride(0)
         sy_ptr, q_ptr = s_y.data_ptr(), q.data_ptr()
     if emit_f:
@@ -258,23 +159,11 @@ def _launch(x, strides, geom, w, ldw, kw, n, scale, bias, s_y, relu,
         f_vec = 16 // f.element_size()
         while f_vec > 1 and n % f_vec:
             f_vec //= 2
-    with torch.cuda.device(dev):
-        err = _lib().k3_launch(
-            x.data_ptr(), *strides, *geom, n, w.data_ptr(), ldw, kw,
-            scale.data_ptr(), bias.data_ptr(), sy_ptr, q_ptr, ldq, f_ptr,
-            ldf, F_KINDS[f_dtype] if emit_f else 0, f_vec, int(relu),
-            STAGES, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int8_gemm_requant: kernel launch failed with "
-                           f"cudaError_t {err}")
-    int8_gemm_requant.launches += 1
+    _KERNEL(x.device, (x.data_ptr(), *strides, *geom, n, w.data_ptr(), ldw,
+                       kw, scale.data_ptr(), bias.data_ptr(), sy_ptr, q_ptr,
+                       ldq, f_ptr, ldf, F_KINDS[f_dtype] if emit_f else 0,
+                       f_vec, int(relu), STAGES))
     return q, f
-
-
-def _emitted(q, f, emit_q: bool, emit_f: bool):
-    """A custom op's ``(q, f)`` as the entries return them: None for the
-    one not asked for."""
-    return (q if emit_q else None), (f if emit_f else None)
 
 
 def int8_gemm_requant(x_q, w_q, scale, bias, s_y=None, *, relu: bool = True,
@@ -303,10 +192,10 @@ def int8_gemm_requant(x_q, w_q, scale, bias, s_y=None, *, relu: bool = True,
         raise ValueError(f"int8_gemm_requant: x {tuple(x_q.shape)} and w "
                          f"{tuple(w_q.shape)} are not (M, K) and (K, N)")
     if emit_q:
-        s_y = _as_scale(s_y, x_q.device)
-    impl = _int8_gemm_cuda if _build.eager(x_q) else int8_gemm_requant_op
-    return _emitted(*impl(x_q, w_q, scale, bias, s_y, relu, emit_q, emit_f,
-                          f_dtype), emit_q, emit_f)
+        s_y = as_scale(s_y, x_q.device)
+    return emitted(*_GEMM_OP.impl_for(x_q)(x_q, w_q, scale, bias, s_y, relu,
+                                           emit_q, emit_f, f_dtype),
+                   emit_q, emit_f)
 
 
 def _int8_gemm_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -317,14 +206,14 @@ def _int8_gemm_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
     """The dense entry's CUDA implementation: one launch of the kernel."""
     m, k = x_q.shape
     n = w_q.shape[1]
-    kp = _pad16(k)
+    kp = pad16(k)
     _check(x_q, w_q, n, kp, scale, bias, emit_q, emit_f, f_dtype)
     if not (x_q.stride(1) == 1 and x_q.stride(0) >= kp
-            and _aligned(x_q, x_q.stride(0))):
+            and aligned(x_q, x_q.stride(0))):
         x_q = torch.empty((m, kp), dtype=torch.int8,
                           device=x_q.device)[:, :k].copy_(x_q)
     if not (w_q.stride(0) == 1 and w_q.stride(1) >= kp
-            and _aligned(w_q, w_q.stride(1))):
+            and aligned(w_q, w_q.stride(1))):
         # the kernel cuts w's rows at K, so the pitch bytes stay unwritten
         w_q = torch.empty((n, kp), dtype=torch.int8,
                           device=w_q.device)[:, :k].copy_(w_q.t()).t()
@@ -334,24 +223,21 @@ def _int8_gemm_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
                    scale, bias, s_y, relu, emit_q, emit_f, f_dtype)
 
 
-int8_gemm_requant_op = torch.library.custom_op(
-    "densereg::int8_gemm_requant", _int8_gemm_cuda, mutates_args=(),
-    device_types="cuda")
-
-
-@int8_gemm_requant_op.register_kernel("cpu")
 def _int8_gemm_requant_cpu(x_q, w_q, scale, bias, s_y, relu, emit_q, emit_f,
                            f_dtype):
-    return _filled(*int8_gemm_requant_reference(
+    return filled(*int8_gemm_requant_reference(
         x_q, w_q, scale, bias, s_y, relu=relu, emit_q=emit_q, emit_f=emit_f,
         f_dtype=f_dtype), x_q, f_dtype)
 
 
-@int8_gemm_requant_op.register_fake
 def _int8_gemm_requant_fake(x_q, w_q, scale, bias, s_y, relu, emit_q, emit_f,
                             f_dtype):
-    return _outputs(x_q, x_q.shape[:1], w_q.shape[1], emit_q, emit_f,
-                    f_dtype)
+    return outputs(x_q, x_q.shape[:1], w_q.shape[1], emit_q, emit_f,
+                   f_dtype, x_q.is_cuda)
+
+
+_GEMM_OP = _build.Op("int8_gemm_requant", _int8_gemm_cuda,
+                     _int8_gemm_requant_cpu, _int8_gemm_requant_fake)
 
 
 def int8_conv_requant(x_q, w_packed, k: int, stride: int, scale, bias,
@@ -364,8 +250,8 @@ def int8_conv_requant(x_q, w_packed, k: int, stride: int, scale, bias,
 
     On the card the kernel reads ``x_q`` in place, 16 bytes of a pixel at a
     time: every pixel must start at a multiple of 16 bytes (the layout of
-    :func:`quantize` with ``pitch16`` and of the kernel's ``q``). Anything
-    else raises: it is not copied quietly. Calls the custom op
+    ``int8_layout.quantize`` with ``pitch16`` and of the kernel's ``q``).
+    Anything else raises: it is not copied quietly. Calls the custom op
     ``densereg::int8_conv_requant`` (CPU: :func:`int8_conv_requant_reference`).
     """
     if x_q.dim() != 4 or w_packed.dim() != 2:
@@ -373,14 +259,14 @@ def int8_conv_requant(x_q, w_packed, k: int, stride: int, scale, bias,
                          f"NHWC or w {tuple(w_packed.shape)} not packed")
     c = x_q.shape[3]
     kk = w_packed.shape[1]
-    if kk != k * k * _pad16(c):
+    if kk != k * k * pad16(c):
         raise ValueError(f"int8_conv_requant: w {tuple(w_packed.shape)} is "
                          f"not pack_weight of a {k}x{k}x{c} kernel")
     if emit_q:
-        s_y = _as_scale(s_y, x_q.device)
-    impl = _int8_conv_cuda if _build.eager(x_q) else int8_conv_requant_op
-    return _emitted(*impl(x_q, w_packed, k, stride, scale, bias, s_y, relu,
-                          emit_q, emit_f, f_dtype), emit_q, emit_f)
+        s_y = as_scale(s_y, x_q.device)
+    return emitted(*_CONV_OP.impl_for(x_q)(x_q, w_packed, k, stride, scale,
+                                           bias, s_y, relu, emit_q, emit_f,
+                                           f_dtype), emit_q, emit_f)
 
 
 def _int8_conv_cuda(x_q: torch.Tensor, w_packed: torch.Tensor, k: int,
@@ -394,14 +280,14 @@ def _int8_conv_cuda(x_q: torch.Tensor, w_packed: torch.Tensor, k: int,
     n, kk = w_packed.shape
     _check(x_q, w_packed, n, kk, scale, bias, emit_q, emit_f, f_dtype)
     if (x_q.stride(3) != 1 or x_q.stride(2) < c
-            or not _aligned(x_q, *x_q.stride()[:3])):
+            or not aligned(x_q, *x_q.stride()[:3])):
         raise ValueError(f"int8_conv_requant: pixels of x must start at "
                          f"16-byte multiples, got strides {x_q.stride()}")
-    if w_packed.stride(1) != 1 or not _aligned(w_packed, w_packed.stride(0)):
+    if w_packed.stride(1) != 1 or not aligned(w_packed, w_packed.stride(0)):
         raise ValueError("int8_conv_requant: w rows must start at 16-byte "
                          "multiples (pack_weight's layout)")
     oh, ow = -(-h // stride), -(-w // stride)
-    geom = (b, h, w, oh, ow, _pad16(c), k, stride,
+    geom = (b, h, w, oh, ow, pad16(c), k, stride,
             same_pads(h, k, stride)[0], same_pads(w, k, stride)[0])
     q, f = _launch(x_q, x_q.stride()[:3], geom, w_packed, w_packed.stride(0),
                    kk, n, scale, bias, s_y, relu, emit_q, emit_f, f_dtype)
@@ -409,25 +295,22 @@ def _int8_conv_cuda(x_q: torch.Tensor, w_packed: torch.Tensor, k: int,
                  for t in (q, f))
 
 
-int8_conv_requant_op = torch.library.custom_op(
-    "densereg::int8_conv_requant", _int8_conv_cuda, mutates_args=(),
-    device_types="cuda")
-
-
-@int8_conv_requant_op.register_kernel("cpu")
 def _int8_conv_requant_cpu(x_q, w_packed, k, stride, scale, bias, s_y, relu,
                            emit_q, emit_f, f_dtype):
-    return _filled(*int8_conv_requant_reference(
+    return filled(*int8_conv_requant_reference(
         x_q, w_packed, k, stride, scale, bias, s_y, relu=relu, emit_q=emit_q,
         emit_f=emit_f, f_dtype=f_dtype), x_q, f_dtype)
 
 
-@int8_conv_requant_op.register_fake
 def _int8_conv_requant_fake(x_q, w_packed, k, stride, scale, bias, s_y, relu,
                             emit_q, emit_f, f_dtype):
     b, h, w, _ = x_q.shape
-    return _outputs(x_q, (b, -(-h // stride), -(-w // stride)),
-                    w_packed.shape[0], emit_q, emit_f, f_dtype)
+    return outputs(x_q, (b, -(-h // stride), -(-w // stride)),
+                   w_packed.shape[0], emit_q, emit_f, f_dtype, x_q.is_cuda)
 
 
-int8_gemm_requant.launches = 0
+_CONV_OP = _build.Op("int8_conv_requant", _int8_conv_cuda,
+                     _int8_conv_requant_cpu, _int8_conv_requant_fake)
+# both entries launch the one kernel and count into one counter
+_KERNEL = _build.Kernel("int8_gemm", "k3_launch", _ARGTYPES,
+                        int8_gemm_requant)

@@ -4,11 +4,10 @@ sum of a residual or an hourglass folded in: ``csrc/int8_quantize.cu``.
 :func:`int8_quantize` gives the scale ``s = max(amax, 1e-8) / 127``, the
 sum ``f = a + b`` where an addend ``b`` is given, and ``q``, the int8
 quantization of ``f`` (else of ``a``) with ``s``, its pixels 16 bytes apart
-as K3 and the depthwise kernel read them. It calls the custom op
-``densereg::int8_quantize``: on CUDA tensors one launch of the hand-written
-kernel (or it raises), on CPU tensors the plain form,
-:func:`int8_quantize_reference`, which is :func:`act_scale`, the add and
-``ops.int8_gemm.quantize``, the kernel's oracle.
+as K3 and the depthwise kernel read them. Its custom op (``ops._build.Op``)
+is ``densereg::int8_quantize``; its plain form, :func:`act_scale`, the add
+and ``ops.int8_layout.quantize`` (:func:`int8_quantize_reference`), is the
+kernel's oracle.
 
 The kernel replaces no TPU kernel: the JAX package leaves this glue to XLA,
 which fuses it. It is bound by bytes, and reads each input and writes each
@@ -27,27 +26,20 @@ from typing import Optional, Tuple
 import torch
 
 from densereg_torch.ops import _build
-from densereg_torch.ops.int8_gemm import _pad16, quantize
-
-KINDS = {torch.float32: 1, torch.bfloat16: 2}
+from densereg_torch.ops.int8_layout import (
+    F_KINDS,
+    filled,
+    outputs,
+    pad16,
+    quantize,
+)
 
 # the kernel's paths, in the order its launch function reports them: 16
 # bytes a thread where C % 16 == 0 and the inputs start at 16-byte
 # multiples, else one element a thread
 PATHS = ("flat", "elements")
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-             + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int),
-                                     ctypes.c_void_p])
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("int8_quantize")
-    fn = lib.quantize_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3
 
 
 def act_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -67,28 +59,19 @@ def int8_quantize_reference(a: torch.Tensor, b: Optional[torch.Tensor],
     return quantize(v, s, pitch16=True), (None if b is None else v), s
 
 
-def _outputs(a: torch.Tensor, with_f: bool, f_placeholder: bool = True):
-    """New ``(q, f, s)`` for ``a``: q with rows every ``ceil(C / 16) * 16``
-    bytes, f like ``a`` (without the sum an empty ``(0,)`` tensor, as a
-    custom op returns a fixed number of tensors, or None where
-    ``f_placeholder`` is false), s 0-d float32. The kernel's wrapper and
-    the fake allocate through here."""
-    c = a.shape[-1]
-    if c % 16 == 0:
-        q = a.new_empty(a.shape, dtype=torch.int8)
-    else:
-        q = a.new_empty(a.shape[:-1] + (_pad16(c),),
-                        dtype=torch.int8)[..., :c]
-    if with_f:
-        f = a.new_empty(a.shape)
-    else:
-        f = a.new_empty((0,)) if f_placeholder else None
+def _outputs(a: torch.Tensor, b: Optional[torch.Tensor], amax=None):
+    """New ``(q, f, s)`` for ``a`` and the addend ``b``: ``(q, f)`` as
+    ``int8_layout.outputs`` makes them (q with rows every ``ceil(C / 16) *
+    16`` bytes, f like ``a`` where there is a sum), s 0-d float32. The
+    kernel's wrapper allocates through here, and it is the op's fake."""
+    q, f = outputs(a, a.shape[:-1], a.shape[-1], True, b is not None,
+                   a.dtype, True)
     return q, f, a.new_empty((), dtype=torch.float32)
 
 
 def _check(a: torch.Tensor, b: Optional[torch.Tensor],
            amax: torch.Tensor) -> None:
-    if a.dtype not in KINDS:
+    if a.dtype not in F_KINDS:
         raise TypeError(f"int8_quantize: a must be float32 or bfloat16, got "
                         f"{a.dtype}")
     if a.dim() < 1 or a.numel() < 1:
@@ -118,65 +101,35 @@ def int8_quantize(a: torch.Tensor, amax: torch.Tensor,
     contiguous. Each launch of the kernel adds one to
     ``int8_quantize.launches`` and to its path's count in
     ``int8_quantize.launches_by_path`` (:data:`PATHS`)."""
-    if _build.eager(a):
-        return _launch(a, b, amax, f_placeholder=False)
-    q, f, s = int8_quantize_op(a, b, amax)
+    q, f, s = _OP.impl_for(a)(a, b, amax)
     return q, (None if b is None else f), s
-
-
-def _launch(a: torch.Tensor, b: Optional[torch.Tensor], amax: torch.Tensor,
-            f_placeholder: bool = True):
-    """One launch of the kernel: ``(q, f, s)``, f as :func:`_outputs`
-    makes it."""
-    _check(a, b, amax)
-    if not (a.is_contiguous() and (b is None or b.is_contiguous())):
-        raise ValueError("int8_quantize: a and b must be contiguous on the "
-                         "card")
-    q, f, s = _outputs(a, b is not None, f_placeholder)
-    c = a.shape[-1]
-    dev = a.device
-    path = ctypes.c_int(-1)
-    args = (a.data_ptr(), None if b is None else b.data_ptr(),
-            amax.data_ptr(), q.data_ptr(),
-            None if b is None else f.data_ptr(), s.data_ptr(), a.numel(), c,
-            _pad16(c), KINDS[a.dtype], ctypes.byref(path),
-            _build.stream(dev))
-    if dev.index == torch.cuda.current_device():
-        err = _lib().quantize_launch(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = _lib().quantize_launch(*args)
-    if err != 0:
-        raise RuntimeError(f"int8_quantize: kernel launch failed with "
-                           f"cudaError_t {err}")
-    int8_quantize.launches += 1
-    int8_quantize.launches_by_path[PATHS[path.value]] += 1
-    return q, f, s
 
 
 def _int8_quantize_cuda(a: torch.Tensor, b: Optional[torch.Tensor],
                         amax: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The op's CUDA implementation: one launch of the kernel."""
-    return _launch(a, b, amax)
+    _check(a, b, amax)
+    if not (a.is_contiguous() and (b is None or b.is_contiguous())):
+        raise ValueError("int8_quantize: a and b must be contiguous on the "
+                         "card")
+    q, f, s = _outputs(a, b)
+    c = a.shape[-1]
+    _KERNEL(a.device, (a.data_ptr(), None if b is None else b.data_ptr(),
+                       amax.data_ptr(), q.data_ptr(),
+                       None if b is None else f.data_ptr(), s.data_ptr(),
+                       a.numel(), c, pad16(c), F_KINDS[a.dtype]))
+    return q, f, s
 
 
-int8_quantize_op = torch.library.custom_op(
-    "densereg::int8_quantize", _int8_quantize_cuda, mutates_args=(),
-    device_types="cuda")
-
-
-@int8_quantize_op.register_kernel("cpu")
 def _int8_quantize_cpu(a, b, amax):
     _check(a, b, amax)
     q, f, s = int8_quantize_reference(a, b, amax)
-    return q, (a.new_empty((0,)) if f is None else f.contiguous()), s
+    q, f = filled(q, None if f is None else f.contiguous(), a, a.dtype)
+    return q, f, s
 
 
-@int8_quantize_op.register_fake
-def _int8_quantize_fake(a, b, amax):
-    return _outputs(a, b is not None)
-
-
-int8_quantize.launches = 0
-int8_quantize.launches_by_path = dict.fromkeys(PATHS, 0)
+_OP = _build.Op("int8_quantize", _int8_quantize_cuda, _int8_quantize_cpu,
+                _outputs)
+_KERNEL = _build.Kernel("int8_quantize", "quantize_launch", _ARGTYPES,
+                        int8_quantize, paths=PATHS)

@@ -4,10 +4,8 @@ Replaces the TPU kernel
 ``densereg_tpu/ops/meanshift_pallas.py::weighted_mean_shift_pallas``. As in
 the JAX package it is exported but on no serving path: the fused decode
 (``ops.fused_decode``) runs the same stage inside its own kernel (both
-include ``csrc/vote_meanshift.cuh``). The kernel is the custom op
-``densereg::weighted_mean_shift``: on CUDA tensors it launches the
-hand-written kernel (or raises); on CPU tensors it runs the plain version,
-``decode.weighted_mean_shift``.
+include ``csrc/vote_meanshift.cuh``). Its custom op (``ops._build.Op``) is
+``densereg::weighted_mean_shift``.
 """
 
 from __future__ import annotations
@@ -22,16 +20,7 @@ from densereg_torch.ops import _build
 MAX_CANDIDATES = 8   # one candidate a lane of an 8-lane segment
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("meanshift")
-    fn = lib.meanshift_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_float])
 
 
 def weighted_mean_shift_cuda(cans, weights, num_it: int = 10,
@@ -47,9 +36,7 @@ def weighted_mean_shift_cuda(cans, weights, num_it: int = 10,
     ``decode.weighted_mean_shift``. Each launch of the kernel adds one to
     ``weighted_mean_shift_cuda.launches``.
     """
-    impl = (_weighted_mean_shift_cuda if _build.eager(cans)
-            else weighted_mean_shift_op)
-    return impl(cans, weights, num_it, band_width, grid)
+    return _OP.impl_for(cans)(cans, weights, num_it, band_width, grid)
 
 
 def _weighted_mean_shift_cuda(cans: torch.Tensor, weights: torch.Tensor,
@@ -74,36 +61,18 @@ def _weighted_mean_shift_cuda(cans: torch.Tensor, weights: torch.Tensor,
         return out
     cans = cans.contiguous()
     weights = weights.contiguous()
-    args = (cans.data_ptr(), weights.data_ptr(), out.data_ptr(), b * j, n,
-            num_it, -1.0 / (2.0 * band_width * band_width), grid,
-            float(grid) - 0.1)
-    launch = _lib().meanshift_launch
-    if dev.index == torch.cuda.current_device():
-        err = launch(*args, _build.stream(dev))
-    else:
-        with torch.cuda.device(dev):
-            err = launch(*args, _build.stream(dev))
-    if err != 0:
-        raise RuntimeError(f"weighted_mean_shift_cuda: kernel launch failed "
-                           f"with cudaError_t {err}")
-    weighted_mean_shift_cuda.launches += 1
+    _KERNEL(dev, (cans.data_ptr(), weights.data_ptr(), out.data_ptr(), b * j,
+                  n, num_it, -1.0 / (2.0 * band_width * band_width), grid,
+                  float(grid) - 0.1))
     return out
 
 
-weighted_mean_shift_op = torch.library.custom_op(
-    "densereg::weighted_mean_shift", _weighted_mean_shift_cuda,
-    mutates_args=(), device_types="cuda")
-
-
-@weighted_mean_shift_op.register_kernel("cpu")
-def _weighted_mean_shift_cpu(cans, weights, num_it, band_width, grid):
-    return decode.weighted_mean_shift(cans, weights, num_it, band_width, grid)
-
-
-@weighted_mean_shift_op.register_fake
 def _weighted_mean_shift_fake(cans, weights, num_it, band_width, grid):
     b, j = cans.shape[:2]
     return cans.new_empty((b, j, 3), dtype=torch.float32)
 
 
-weighted_mean_shift_cuda.launches = 0
+_OP = _build.Op("weighted_mean_shift", _weighted_mean_shift_cuda,
+                decode.weighted_mean_shift, _weighted_mean_shift_fake)
+_KERNEL = _build.Kernel("meanshift", "meanshift_launch", _ARGTYPES,
+                        weighted_mean_shift_cuda)

@@ -10,9 +10,10 @@ mass, depth normalization, the stacked hourglass (batch norm folded into
 the convolutions by default), the head-grid subsample and the vote decode,
 the custom op ``densereg::fused_decode`` (the fused decode kernel on CUDA).
 That program is one module, :class:`ServingModule`, which
-``densereg_torch.export`` exports as it stands. Each dispatch is padded to
-the smallest of ``batch_buckets`` that fits it, so the device sees a fixed
-set of batch shapes. The port runs eagerly.
+``densereg_torch.export`` exports as it stands. The host side (chunks,
+bucket padding, the pinned feed, the fetch, the warm-up) is
+``host_loop.HostLoop``, which the exported predictor shares. The port runs
+eagerly.
 
 With a ``mesh`` (``parallel.make_mesh``) a dispatch is split over the
 mesh's devices. Under a process group every process, one card each,
@@ -33,6 +34,7 @@ from torch import nn
 
 from densereg_torch.config import CameraConfig, EvalConfig, NetConfig
 from densereg_torch.decode import decode_poses
+from densereg_torch.host_loop import HostLoop, bucket_ladder
 from densereg_torch.models import fold_batch_norm, from_flax, to_flax
 from densereg_torch.models.bridge import is_folded, is_quantized
 from densereg_torch.models.quantize import calibrate, quantize_weights
@@ -93,7 +95,7 @@ class ServingModule(nn.Module):
                                 self.ecfg)["xyz"]
 
 
-class Predictor:
+class Predictor(HostLoop):
     """Serve a DenseRegNet from its Flax-layout ``variables`` (nested dicts of
     arrays, as ``models.bridge.from_flax`` takes them).
 
@@ -150,6 +152,8 @@ class Predictor:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.camera = camera
+        self.frame_hw = (int(camera.h), int(camera.w))
+        self.num_joint = self.net_cfg.num_joint
         self.ecfg = ecfg
         self.module = ServingModule(self.net, camera.as_array(
             device=self.device), ecfg)
@@ -160,24 +164,17 @@ class Predictor:
             frames = np.asarray(frames, np.float32)
             if frames.ndim == 3:
                 frames = frames[..., None]
-            calibrate(self.net, [self._normed(
-                self._to_device(frames),
-                self._to_device(np.asarray(bbxs, np.float32)))[0]])
+            with torch.inference_mode():
+                normed = self.module.normed(
+                    self._to_device(frames),
+                    self._to_device(np.asarray(bbxs, np.float32)))[0]
+            calibrate(self.net, [normed])
         # one replica of the program on each further local card of a mesh
         # of one process (under a group a process has one card)
         self._replicas = [self.module] + [
             copy.deepcopy(self.module).to(d)
             for d in (mesh.devices[1:] if mesh is not None else ())]
-        # max_batch is always a bucket, so every chunk has a home
-        if batch_buckets:
-            buckets = sorted({int(v) for v in batch_buckets} | {max_batch})
-            if buckets[0] < 1 or buckets[-1] > max_batch:
-                raise ValueError(
-                    f"batch_buckets must lie in [1, max_batch={max_batch}]; "
-                    f"got {sorted(batch_buckets)}")
-            self.batch_buckets = tuple(buckets)
-        else:
-            self.batch_buckets = (max_batch,)
+        self.batch_buckets = bucket_ladder(batch_buckets, max_batch)
 
     @classmethod
     def from_checkpoint(cls, train_dir: str, net_cfg: NetConfig,
@@ -211,12 +208,6 @@ class Predictor:
         return cls(variables, net_cfg, camera, **kwargs)
 
     @torch.inference_mode()
-    def _normed(self, frames: torch.Tensor, bbxs: torch.Tensor):
-        """Device frames and boxes -> the net's input (normalized depth
-        crops), ``cfgs`` and ``coms``."""
-        return self.module.normed(frames, bbxs)
-
-    @torch.inference_mode()
     def _heads(self, frames: torch.Tensor, bbxs: torch.Tensor):
         """Device frames and boxes -> the decode's inputs: the last stack's
         ``hm, hm3, um`` (NHWC views), the head-grid depth, ``cfgs`` and
@@ -231,73 +222,6 @@ class Predictor:
         if self.mesh is None:
             return self.module(frames, bbxs)
         return _predict_on_mesh(self.mesh, self._replicas, frames, bbxs)
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        with span("densereg.feed"):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if self.device.type == "cuda":
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=True)
-
-    def warmup(self, with_u16: bool = True) -> None:
-        """Run every (bucket, dtype) path once, so that no request pays for
-        the first launch or the kernel build."""
-        hw = (int(self.camera.h), int(self.camera.w))
-        bbx = np.asarray([[0, 0, hw[0], hw[1], 500.0]], np.float32)
-        dtypes = (np.float32, np.uint16) if with_u16 else (np.float32,)
-        for bucket in self.batch_buckets:
-            for dt in dtypes:
-                self._dispatch(np.zeros((bucket,) + hw + (1,), dt),
-                               np.repeat(bbx, bucket, 0)).cpu()
-
-    def _dispatch(self, frames: np.ndarray, bbxs: np.ndarray) -> torch.Tensor:
-        """Pad one chunk to the smallest bucket that fits and enqueue it;
-        returns the device result, with bucket rows, without waiting."""
-        with span("densereg.dispatch"):
-            b = frames.shape[0]
-            bucket = next(v for v in self.batch_buckets if v >= b)
-            pad = bucket - b
-            if pad:
-                frames = np.concatenate([frames,
-                                         np.repeat(frames[-1:], pad, 0)])
-                bbxs = np.concatenate([bbxs, np.repeat(bbxs[-1:], pad, 0)])
-            return self._predict(self._to_device(frames),
-                                 self._to_device(np.asarray(bbxs,
-                                                            np.float32)))
-
-    def __call__(self, frames_mm: np.ndarray, bbxs: np.ndarray) -> np.ndarray:
-        """frames_mm: (b, H, W) or (b, H, W, 1) raw depth, mm;
-        bbxs: (b, 5) = (top, left, bottom, right, depth_threshold).
-        Returns (b, 3j) xyz mm.
-
-        Requests larger than ``max_batch`` run as a double-buffered chunk
-        pipeline: chunk k+1 is padded and enqueued before chunk k's result
-        is fetched."""
-        with span("densereg.predict"):
-            frames = np.asarray(frames_mm)
-            if frames.dtype != np.uint16:  # keep integer depth in native width
-                frames = frames.astype(np.float32, copy=False)
-            if frames.ndim == 3:
-                frames = frames[..., None]
-            b = frames.shape[0]
-            if b == 0:
-                return np.zeros((0, 3 * self.net_cfg.num_joint), np.float32)
-            out, pending = [], None
-            for i in range(0, b, self.max_batch):
-                chunk = frames[i:i + self.max_batch]
-                dev = self._dispatch(chunk, bbxs[i:i + self.max_batch])
-                if pending is not None:
-                    out.append(_fetch(*pending))
-                pending = (dev, len(chunk))
-            out.append(_fetch(*pending))
-            return out[0] if len(out) == 1 else np.concatenate(out)
-
-
-def _fetch(dev: torch.Tensor, n: int) -> np.ndarray:
-    """A dispatch's first ``n`` rows on the host: the host waits for the
-    device here."""
-    with span("densereg.fetch"):
-        return dev[:n].cpu().numpy()
 
 
 def _predict_on_mesh(mesh, replicas, frames: torch.Tensor,

@@ -1,9 +1,10 @@
 """Device and environment shim, the port of ``densereg_tpu/utils/device.py``.
 
 PyTorch finds the cards through CUDA; this module only provides (a)
-environment-driven device restriction, (b) a topology report and (c) the
+environment-driven device restriction, (b) a topology report, (c) the
 device an entry point runs on when it is given none: the first visible
-card, never the CPU unless the caller asks for it.
+card, never the CPU unless the caller asks for it, and (d) the one copy of
+host data to a device that serving and the input pipelines feed through.
 
 Environment variables honoured:
   DENSEREG_VISIBLE_DEVICES  comma list of local device indices to use
@@ -14,7 +15,18 @@ from __future__ import annotations
 import os
 from typing import List
 
+import numpy as np
 import torch
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """``a`` (an array or a CPU tensor) on ``device``: to a card through
+    pinned memory, the copy enqueued without waiting for it."""
+    t = torch.as_tensor(np.ascontiguousarray(a) if isinstance(a, np.ndarray)
+                        else a)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 def visible_devices(platform: str = "cuda") -> List[torch.device]:

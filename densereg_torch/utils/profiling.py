@@ -17,10 +17,11 @@ thousands of kernels); in the int8 serving net each standalone quantize
 step opens one. The spans:
 
 span (once per)                      where
-``densereg.predict`` (request)       ``serving.Predictor.__call__``
-``densereg.dispatch`` (chunk)        ``Predictor._dispatch``: pad, feed,
+``densereg.predict`` (request)       ``host_loop.HostLoop.__call__`` (the
+                                     live and the exported predictor)
+``densereg.dispatch`` (chunk)        ``HostLoop._dispatch``: pad, feed,
                                      enqueue
-``densereg.feed`` (tensor fed)       ``Predictor._to_device``: the pinned host
+``densereg.feed`` (tensor fed)       ``HostLoop._to_device``: the pinned host
                                      copy and the copy's enqueue
 ``densereg.preprocess`` (chunk)      ``ServingModule.normed``: crop, center of
                                      mass, ``norm_dm``
@@ -32,7 +33,7 @@ span (once per)                      where
 ``densereg.decode`` (chunk)          the head-grid subsample and
                                      ``decode_poses``
 ``densereg.fetch`` (chunk)           a chunk's copy to the host in
-                                     ``Predictor.__call__``
+                                     ``HostLoop.__call__``
 ``densereg.train.step`` (step)       one iteration of ``train.loop.train``'s
                                      loop, inside the profiler's start and stop
 ``densereg.pipeline.wait`` (batch)   ``InputPipeline``'s wait on its producers

@@ -65,6 +65,7 @@ from densereg_torch.models import layers  # noqa: E402
 from densereg_torch.ops import fused_decode as ops  # noqa: E402
 from densereg_torch.ops import int8_dwconv as dw  # noqa: E402
 from densereg_torch.ops import int8_gemm as k3  # noqa: E402
+from densereg_torch.ops import int8_layout  # noqa: E402
 from densereg_torch.ops import meanshift as k2  # noqa: E402
 
 
@@ -614,8 +615,8 @@ def test_quantize_divides_exactly_on_the_card(cuda):
     near = torch.cat([torch.nextafter(steps, steps - 1), steps,
                       torch.nextafter(steps, steps + 1)])
     x = torch.cat([near, torch.randn(100_000) * 2.0])
-    want = k3.quantize(x, s)
-    got = k3.quantize(x.to(cuda), s.to(cuda))
+    want = int8_layout.quantize(x, s)
+    got = int8_layout.quantize(x.to(cuda), s.to(cuda))
     assert torch.equal(got.cpu(), want)
     assert torch.equal(layers.act_scale(x.abs().amax().to(cuda)).cpu(),
                        layers.act_scale(x.abs().amax()))

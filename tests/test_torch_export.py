@@ -31,7 +31,8 @@ from densereg_torch.export import (  # noqa: E402
 from densereg_torch.models import init_variables  # noqa: E402
 from densereg_torch.ops import OP_NAMES  # noqa: E402
 from densereg_torch.ops.int8_dwconv import pack_dw_weight  # noqa: E402
-from densereg_torch.ops.int8_gemm import pack_weight, quantize  # noqa: E402
+from densereg_torch.ops.int8_gemm import pack_weight  # noqa: E402
+from densereg_torch.ops.int8_layout import quantize  # noqa: E402
 from densereg_torch.serve import Client, Server  # noqa: E402
 
 from test_torch_serving import _hand_frames  # noqa: E402

@@ -59,9 +59,9 @@ from densereg_torch.ops.int8_gemm import (  # noqa: E402
     int8_gemm_requant,
     int8_gemm_requant_reference,
     pack_weight,
-    quantize,
     unpack_weight,
 )
+from densereg_torch.ops.int8_layout import quantize  # noqa: E402
 from test_torch_serving import ICVL, _hand_frames  # noqa: E402
 
 SHAPE = dict(num_stack=2, num_fea=16, num_joint=14, input_hw=(64, 64))

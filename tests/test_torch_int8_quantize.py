@@ -3,7 +3,7 @@ op ``densereg::int8_quantize``) on the CPU, where it runs its plain form.
 
 The op's CPU form is the sequence the int8 forward ran before the kernel,
 bit for bit: the scale ``max(amax, 1e-8) / 127`` by a tensor division, the
-add where there is an addend, and ``ops.int8_gemm.quantize`` with rows 16
+add where there is an addend, and ``ops.int8_layout.quantize`` with rows 16
 bytes apart; at every width of the lite net at MSRA's 21 joints, in float32
 and bfloat16, with and without the addend, and on the values where rounding
 and clamping decide (exact half steps, +-inf, +-0, NaN, an amax of 0 or
@@ -37,7 +37,7 @@ from densereg_torch.models import (  # noqa: E402
 )
 from densereg_torch.models.bridge import seeded_depth  # noqa: E402
 from densereg_torch.ops import int8_quantize as iq  # noqa: E402
-from densereg_torch.ops.int8_gemm import quantize  # noqa: E402
+from densereg_torch.ops.int8_layout import quantize  # noqa: E402
 
 # the channel counts of the s2/f128 lite net's steps at J = 21: the stem's
 # depth, the 64..512 sums and inputs, and the concatenations 105 (5J),

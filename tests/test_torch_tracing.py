@@ -2,7 +2,8 @@
 
 Under ``torch.profiler`` a ``Predictor`` request and a ``train()`` step
 leave their named ranges in the Chrome trace, nested by time on the
-launching thread as the span table of ``utils/profiling.py`` says. With no
+launching thread as the span table of ``utils/profiling.py`` says; a
+loaded export artifact's request leaves the live predictor's host spans. With no
 profiler a span never enters ``record_function``; an exported program
 holds no profiler op; and a profiler changes no answer and no training
 step, bit for bit."""
@@ -26,6 +27,7 @@ from densereg_torch.config import TrainConfig  # noqa: E402
 from densereg_torch.data import InputPipeline, synthetic  # noqa: E402
 from densereg_torch.export import (  # noqa: E402
     export_predictor,
+    load_exported,
     read_artifact,
 )
 from densereg_torch.models import init_variables  # noqa: E402
@@ -114,6 +116,42 @@ def test_a_request_of_two_chunks_leaves_its_spans(predictor, tmp_path):
                          "densereg.decode"]
     # chunk k's fetch comes after chunk k+1's dispatch (double buffering)
     assert dispatches[1][1] <= fetches[0][0]
+
+
+HOST_SPANS = ("densereg.predict", "densereg.dispatch", "densereg.feed",
+              "densereg.fetch")
+
+
+def host_nesting(all_spans) -> list:
+    """Each host-side span, by start, as its name and the names of the host
+    spans that hold it."""
+    host = sorted((s for s in all_spans if s[2] in HOST_SPANS),
+                  key=lambda s: (s[0], -s[1]))
+    return [(s[2], tuple(o[2] for o in host
+                         if o != s and o[0] <= s[0] and s[1] <= o[1]))
+            for s in host]
+
+
+def test_an_exported_request_leaves_the_live_host_spans(predictor,
+                                                        tmp_path):
+    """The same request of two chunks through the live predictor and
+    through its loaded artifact opens the same predict, dispatch, feed and
+    fetch spans, nested alike; the loaded programs hold no span of their
+    own."""
+    path = str(tmp_path / "p.pt2")
+    export_predictor(predictor, path, u16=False)
+    loaded = load_exported(path)
+    frames, bbxs = frames_and_boxes(6)
+    traced(lambda: predictor(frames, bbxs), tmp_path / "live.json")
+    traced(lambda: loaded(frames, bbxs), tmp_path / "exported.json")
+    live = spans(tmp_path / "live.json")
+    exported = spans(tmp_path / "exported.json")
+    assert host_nesting(exported) == host_nesting(live)
+    assert {s[2] for s in exported} == set(HOST_SPANS)
+    assert len(named(exported, "densereg.dispatch")) == 2
+    # chunk k's fetch comes after chunk k+1's dispatch (double buffering)
+    dispatches = named(exported, "densereg.dispatch")
+    assert dispatches[1][1] <= named(exported, "densereg.fetch")[0][0]
 
 
 def test_two_traced_train_steps_hold_their_phases(specs, tmp_path):
