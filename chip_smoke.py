@@ -45,6 +45,9 @@ Phases, each printed as one JSON line:
    kernels' launch counts (K1's and the quantize kernel's by path, the
    latter one a standalone quantize step, and the im2col builds on the
    card, which must stay 0) are zeroed just before and read just after.
+   The int8 requests replay the forward's CUDA graph, captured at the
+   warm-up, so their K3, DW and Q launches are the kernel records of
+   their ``csrc/`` symbols in a profiler trace of those requests.
    Then its decode is held against the plain decode on the same heads, the
    whole path against CPU predictors, and each dtype's stages and lone-frame
    latency are timed.
@@ -102,13 +105,14 @@ Phases, each printed as one JSON line:
    socket over the float32 and the calibrated int8 ``Predictor`` at
    ``max_batch`` 256, each with 4 concurrent clients of 1,024 uint16
    frames, pipelined, on counts of their own: no error reply, every
-   request answered, K1 once a batch, K3 once a convolution of each int8
-   forward; the answers against a direct ``Predictor`` call (joints off by
-   more than 1e-3 mm counted as decode flips), frames/s, the latency
-   percentiles and frames per batch of ``stats()``, the batcher's host
-   time a dispatch; the same clients against a predictor that does no
-   work (the daemon's own ceiling); then a flood of 1,024 requests against
-   a queue of 256 (the sheds).
+   request answered, K1 once a batch, K3 called once a convolution of
+   each int8 forward run on the host (a CUDA graph's capture included,
+   its replays not); the answers against a direct ``Predictor`` call
+   (joints off by more than 1e-3 mm counted as decode flips), frames/s,
+   the latency percentiles and frames per batch of ``stats()``, the
+   batcher's host time a dispatch; the same clients against a predictor
+   that does no work (the daemon's own ceiling); then a flood of 1,024
+   requests against a queue of 256 (the sheds).
 12. ``export``, the export artifacts (``densereg_torch.export``) at full
    width, on counts of their own: the float32 (TF32 off), bfloat16 and
    calibrated int8 ``Predictor`` at ``max_batch`` 256 exported on the card
@@ -133,10 +137,11 @@ Phases, each printed as one JSON line:
    phase 8's ``test()``; ``export --platforms cuda``, then ``predict`` on
    64 uint16 PNGs through the checkpoint and through ``--artifact``
    (within 1e-3 mm of each other and of a direct ``Predictor``) and with
-   ``--quantize`` (K3 once a convolution of each forward); ``serve`` in a
-   child process, answered by a ``Client`` and stopped by SIGTERM; ``test``
-   in a child process through a one-rank NCCL group by the command line's
-   flags, whose result file must equal the in-process one.
+   ``--quantize`` (K3 once a convolution of each forward run on the
+   host); ``serve`` in a child process, answered by a ``Client`` and
+   stopped by SIGTERM; ``test`` in a child process through a one-rank
+   NCCL group by the command line's flags, whose result file must equal
+   the in-process one.
 15. ``tools``, the repository's tools on the port
    (``python -m densereg_torch.tools.*``) at the same widths, seeded
    weights, on counts of their own: ``serve_probe --net s2f128 --max_batch
@@ -157,9 +162,13 @@ Then a ``kernels`` line (``train_launches``, ``eval_launches``,
 ``export_launches``, ``multigpu_launches``, ``cli_launches``,
 ``tools_launches``: each kernel's launches in phases 7 to 15, with K1's
 and the quantize kernel's by path; the depthwise kernel's ``launches`` are
-phase 9's), the card's ``nvidia-smi`` name and power limit, and
-as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
-or when any phase fails, it exits non-zero and prints no result.
+phase 9's). A launch is a call of the kernel's wrapper on the host (a
+CUDA graph's capture included, its replays not), but for K3, DW and Q in
+phases 5 and 9, whose int8 requests replay the graph: there it is a
+kernel record in a profiler trace. Then the card's ``nvidia-smi`` name
+and power limit, and as the last line ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or when any phase fails, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -1527,34 +1536,33 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
     convs = sum(1 for m in preds["int8"].net.modules()
                 if isinstance(m, layers.ConvBR))
 
-    # the main path: counts zeroed just before, read just after
-    fd.fused_decode.launches = 0
-    fd.fused_decode.launches_by_path = dict.fromkeys(fd.PATHS, 0)
-    k3.int8_gemm_requant.launches = 0
-    k2.weighted_mean_shift_cuda.launches = 0
-    dw.int8_dwconv_requant.launches = 0
-    zero_quantize_counts()
-    k3.im2col_nhwc.cuda_calls = 0
-    steps0 = layers.int8_counts["quantize"]
-    secs, xyz = {}, {}
-    for name in ("float32", "bfloat16", "int8"):
+    # the main path: counts zeroed just before, read just after; the int8
+    # requests' K3, DW and Q launches from a profiler trace of each
+    on_cuda = torch.device(device).type == "cuda"
+    zero_counts()
+    secs, xyz, ran = {}, {}, {}
+
+    def serve(name, n, traced=False):
         secs[name] = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            xyz[name] = preds[name](frames, bbxs)
-            secs[name].append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    xyz["int8_dynamic"] = preds["int8_dynamic"](frames, bbxs)
-    secs["int8_dynamic"] = [time.perf_counter() - t0]
+        for _ in range(n):
+            with (int8_kernels_run(ran) if traced
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                xyz[name] = preds[name](frames, bbxs)
+                secs[name].append(time.perf_counter() - t0)
+
+    serve("float32", reps)
+    serve("bfloat16", reps)
+    serve("int8", reps, traced=on_cuda)
+    serve("int8_dynamic", 1, traced=on_cuda)
     lone = preds["float32"](frames[:1], bbxs[:1])
-    launches = {"fused_decode": fd.fused_decode.launches,
-                "fused_decode_by_path": dict(fd.fused_decode.launches_by_path),
-                "int8_gemm_requant": k3.int8_gemm_requant.launches,
-                "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches,
-                "int8_dwconv_requant": dw.int8_dwconv_requant.launches,
-                **quantize_counts()}
-    im2col_on_card = k3.im2col_nhwc.cuda_calls
-    quantize_steps = layers.int8_counts["quantize"] - steps0
+    counts = read_counts()
+    host_calls = {k: counts[k] for k in ("int8_gemm_requant",
+                                         "int8_dwconv_requant",
+                                         "int8_quantize")}
+    graph = {k: counts.pop(k) for k in ("graph_captures", "graph_replays")}
+    im2col_on_card = counts.pop("im2col_nhwc_cuda_calls")
+    launches = {**counts, **ran}
     decode_strides = {
         name: [t.stride() for t in pred._heads(
             pred._to_device(frames[:1]), pred._to_device(bbxs[:1]))[:4]]
@@ -1562,8 +1570,15 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
     per_request = -(-n_frames // max_batch)
     int8_dispatches = (reps + 1) * per_request
     dispatches = 2 * reps * per_request + int8_dispatches + 1
+    b = min(n_frames, max_batch)
+    dev_frames = torch.from_numpy(frames[:b]).to(device)
+    dev_bbxs = torch.from_numpy(bbxs[:b]).to(device)
+    # each request's standalone quantize steps, by an eager forward a net
+    quantize_steps = per_request * (
+        reps * quantize_steps_a_forward(preds["int8"], dev_frames, dev_bbxs)
+        + quantize_steps_a_forward(preds["int8_dynamic"], dev_frames,
+                                   dev_bbxs))
 
-    on_cuda = torch.device(device).type == "cuda"
     emit({"phase": "serving", "config": net_cfg.__dict__,
           "frames_per_request": n_frames, "frame_hw": [240, 320],
           "frame_dtype": "uint16", "max_batch": max_batch,
@@ -1575,6 +1590,7 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
                            for d, s in secs.items()},
           "request_s": secs, "dispatches": dispatches,
           "int8_dispatches": int8_dispatches, "launches": launches,
+          "int8_host_calls": host_calls, "int8_graph": graph,
           "int8_quantize_steps": quantize_steps,
           "decode_input_strides": decode_strides,
           "im2col_nhwc_cuda_calls": im2col_on_card})
@@ -1595,14 +1611,19 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
               f"fused_decode paths {launches['fused_decode_by_path']}, "
               f"expected {want_paths} (decode inputs' strides: "
               f"{decode_strides})")
+        # every int8 dispatch replays the graph the warm-up captured: no
+        # kernel call on the host, every kernel on the card
+        check(graph == {"graph_captures": 0,
+                        "graph_replays": int8_dispatches}
+              and not any(host_calls.values()),
+              f"int8 serving: {graph} for {int8_dispatches} dispatches, "
+              f"host calls {host_calls}")
         check(launches["int8_gemm_requant"] == convs * int8_dispatches,
-              f"int8_gemm_requant launched {launches['int8_gemm_requant']} "
+              f"int8_gemm_requant ran {launches['int8_gemm_requant']} "
               f"times, not {convs} convolutions x {int8_dispatches} "
               f"dispatches")
-        check(launches["int8_quantize"] == quantize_steps > 0
-              and sum(launches["int8_quantize_by_path"].values())
-              == quantize_steps,
-              f"int8_quantize launched {launches['int8_quantize']} times "
+        check(launches["int8_quantize"] == quantize_steps > 0,
+              f"int8_quantize ran {launches['int8_quantize']} times "
               f"({launches['int8_quantize_by_path']}) in {quantize_steps} "
               f"standalone quantize steps")
         check(im2col_on_card == 0,
@@ -1616,9 +1637,6 @@ def phase_serving(variables, device, net_cfg: NetConfig = NetConfig(),
               "a kernel launched on the CPU")
 
     # the kernel against the plain decode on the served heads
-    b = min(n_frames, max_batch)
-    dev_frames = torch.from_numpy(frames[:b]).to(device)
-    dev_bbxs = torch.from_numpy(bbxs[:b]).to(device)
     checks = {}
     for name, pred in preds.items():
         heads = pred._heads(dev_frames, dev_bbxs)
@@ -2275,6 +2293,8 @@ VARIANT_TRAIN_STEPS = 6
 
 
 def zero_counts():
+    layers.int8_counts["graph_captures"] = 0
+    layers.int8_counts["graph_replays"] = 0
     fd.fused_decode.launches = 0
     fd.fused_decode.launches_by_path = dict.fromkeys(fd.PATHS, 0)
     k3.int8_gemm_requant.launches = 0
@@ -2303,7 +2323,59 @@ def read_counts():
             "weighted_mean_shift": k2.weighted_mean_shift_cuda.launches,
             "int8_dwconv_requant": dw.int8_dwconv_requant.launches,
             **quantize_counts(),
-            "im2col_nhwc_cuda_calls": k3.im2col_nhwc.cuda_calls}
+            "im2col_nhwc_cuda_calls": k3.im2col_nhwc.cuda_calls,
+            "graph_captures": layers.int8_counts["graph_captures"],
+            "graph_replays": layers.int8_counts["graph_replays"]}
+
+
+def host_forwards(counts: dict, dispatches: int) -> int:
+    """The int8 forwards of ``dispatches`` that called the kernels on the
+    host: each dispatch not replayed from the CUDA graph, and each capture
+    (``counts`` in ``read_counts``' form)."""
+    return dispatches - counts["graph_replays"] + counts["graph_captures"]
+
+
+# the int8 kernels' ``__global__`` symbols in ``csrc/``: K3's, DW's, and
+# Q's by path
+INT8_SYMBOLS = {"int8_gemm_requant": "k3_kernel",
+                "int8_dwconv_requant": "dw_kernel",
+                "flat": "quantize_flat", "elements": "quantize_elements"}
+
+
+@contextlib.contextmanager
+def int8_kernels_run(acc: dict):
+    """Add to ``acc``, in ``read_counts``' form, the K3, DW and Q kernels
+    the card ran inside the block: their kernel records in a
+    ``torch.profiler`` trace, by their symbols. A replay of the int8
+    forward's CUDA graph runs them with no call on the host, so the
+    wrappers' counters do not see them. One request a block: on an H100
+    a trace of 24 lite dispatches lost 4 of K3's 2,520 records, one of 16
+    dispatches none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    ran = {k: sum(bool(re.search(rf"\b{sym}\b", n)) for n in names)
+           for k, sym in INT8_SYMBOLS.items()}
+    by_path = {p: ran[p] for p in iq.PATHS}
+    add_counts(acc, {"int8_gemm_requant": ran["int8_gemm_requant"],
+                     "int8_dwconv_requant": ran["int8_dwconv_requant"],
+                     "int8_quantize": sum(by_path.values()),
+                     "int8_quantize_by_path": by_path})
+
+
+def quantize_steps_a_forward(pred: Predictor, frames, bbxs) -> int:
+    """Standalone quantize steps of one eager forward of ``pred``'s int8
+    net on device ``frames`` and ``bbxs``."""
+    with torch.inference_mode():
+        x = pred.module.normed(frames, bbxs)[0]
+        steps0 = layers.int8_counts["quantize"]
+        pred.net(x)
+        return layers.int8_counts["quantize"] - steps0
 
 
 def serve_variant(variables, cfg: NetConfig, device, n_frames: int = 1024,
@@ -2342,22 +2414,29 @@ def serve_variant(variables, cfg: NetConfig, device, n_frames: int = 1024,
                     for m in int8_net_.modules())
 
     zero_counts()
-    secs, xyz = {}, {}
+    secs, xyz, ran = {}, {}, {}
+
+    # the int8 requests replay the graphs the warm-up captured: their K3
+    # and DW launches from a profiler trace of each
+    int8_names = [n for n in preds if n.startswith("int8")]
     for name in preds:
         secs[name] = []
         for _ in range(reps):
-            t0 = time.perf_counter()
-            xyz[name] = preds[name](frames, bbxs)
-            secs[name].append(time.perf_counter() - t0)
-    launches = read_counts()
+            with (int8_kernels_run(ran) if name in int8_names
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                xyz[name] = preds[name](frames, bbxs)
+                secs[name].append(time.perf_counter() - t0)
+    launches = {**read_counts(), **ran}
     per_request = reps * -(-n_frames // max_batch)
     dispatches = len(preds) * per_request
-    int8_dispatches = sum(n.startswith("int8") for n in preds) * per_request
+    int8_dispatches = len(int8_names) * per_request
     want = {"fused_decode": dispatches,
             "int8_gemm_requant": k3_convs * int8_dispatches,
             "weighted_mean_shift": 0,
             "int8_dwconv_requant": dw_convs * int8_dispatches,
-            "im2col_nhwc_cuda_calls": 0}
+            "im2col_nhwc_cuda_calls": 0, "graph_captures": 0,
+            "graph_replays": int8_dispatches}
     b = min(n_frames, max_batch)
     dev_frames = torch.from_numpy(frames[:b]).to(device)
     dev_bbxs = torch.from_numpy(bbxs[:b]).to(device)
@@ -3128,9 +3207,12 @@ def phase_daemon(variables, net_cfg: NetConfig, device, root: str,
           and launches["fused_decode_by_path"]["strided"] == 0,
           f"daemon: K1 launched {launches['fused_decode']} times for "
           f"{batches} batches")
-    check(launches["int8_gemm_requant"] == convs * batches["int8"],
-          f"daemon: K3 launched {launches['int8_gemm_requant']} times, "
-          f"{convs} a forward x {batches['int8']} int8 batches expected")
+    int8_forwards = host_forwards(launches, batches["int8"])
+    check(launches["int8_gemm_requant"] == convs * int8_forwards
+          and launches["graph_replays"] <= batches["int8"],
+          f"daemon: K3 called {launches['int8_gemm_requant']} times, "
+          f"{convs} a forward x {int8_forwards} int8 forwards on the host "
+          f"expected ({batches['int8']} int8 batches, {launches})")
     check(launches["weighted_mean_shift"] == 0
           and launches["int8_dwconv_requant"] == 0
           and launches["im2col_nhwc_cuda_calls"] == 0,
@@ -3419,8 +3501,10 @@ def phase_multigpu(variables, net_cfg: NetConfig, root: str, train_root: str,
                "seconds": time.perf_counter() - t0}
         emit(row)
         dispatches = -(-n_frames // max_batch)
+        # the int8 mesh predictor calls K3 on the host or replays the
+        # forward's CUDA graph its warm-up captured
         check(acc["fused_decode"] == 2 * dispatches
-              and acc["int8_gemm_requant"] > 0
+              and acc["int8_gemm_requant"] + acc["graph_replays"] > 0
               and acc["weighted_mean_shift"] == 0
               and acc["int8_dwconv_requant"] == 0,
               f"multigpu: the mesh predictors launched {acc}")
@@ -3524,8 +3608,9 @@ def phase_cli(variables, net_cfg: NetConfig, device, root: str,
     lines must equal ``train.loop.test``'s on the same payload;
     ``export --platforms cuda`` (float32), then ``predict`` on ``n_frames``
     uint16 PNGs through the checkpoint, through ``--artifact`` and with
-    ``--quantize`` (K3 once a convolution of each forward); ``serve`` in a
-    child process answered by a ``Client``, then SIGTERM; ``test`` in a
+    ``--quantize`` (K3 once a convolution of each forward run on the
+    host); ``serve`` in a child process answered by a ``Client``, then
+    SIGTERM; ``test`` in a
     child process through a one-rank NCCL group by the command line's
     flags. Every command's exit code and seconds, the checks' numbers and
     the kernels' launches by command go into one ``cli`` line. Returns the
@@ -3746,12 +3831,15 @@ def phase_cli(variables, net_cfg: NetConfig, device, root: str,
     check(k1["predict"] == k1["predict_artifact"] == k1["predict_quantize"]
           == dispatches,
           f"cli predict: K1 launched {k1}, {dispatches} dispatches")
-    check(by_command["predict_quantize"]["int8_gemm_requant"]
-          == convs * dispatches
+    quantized = by_command["predict_quantize"]
+    int8_forwards = host_forwards(quantized, dispatches)
+    check(quantized["int8_gemm_requant"] == convs * int8_forwards
+          and quantized["graph_replays"] <= dispatches
           and by_command["predict"]["int8_gemm_requant"] == 0,
-          f"cli predict --quantize: K3 launched "
-          f"{by_command['predict_quantize']['int8_gemm_requant']} times, "
-          f"{convs} a forward x {dispatches} expected")
+          f"cli predict --quantize: K3 called "
+          f"{quantized['int8_gemm_requant']} times, {convs} a forward x "
+          f"{int8_forwards} forwards on the host expected ({dispatches} "
+          f"dispatches, {quantized})")
     check(k1["serve"] > 0, f"cli serve: K1 launched {k1['serve']} times")
     check(acc["weighted_mean_shift"] == 0 and acc["int8_dwconv_requant"] == 0
           and acc["im2col_nhwc_cuda_calls"] == 0
@@ -3781,7 +3869,8 @@ def tools_serve_probe(desc: str, quantize: bool, convs: int, device,
     one call a (depth, requests) pair, each on counts of its own: its rows,
     K1 once a daemon batch (the server's batches, the probe's warm-up
     request included, and the two warm-up dispatches, float32 and uint16,
-    of ``Predictor.warmup``), K3 ``convs`` times each int8 forward, no
+    of ``Predictor.warmup``), K3 ``convs`` times each int8 forward run on
+    the host (a capture of the CUDA graph included, its replays not), no
     error reply (the probe stops at one) and frames coalesced at the deepest
     pipeline."""
     from densereg_torch.tools import serve_probe
@@ -3803,11 +3892,13 @@ def tools_serve_probe(desc: str, quantize: bool, convs: int, device,
         check(counts["fused_decode"] == dispatches,
               f"serve_probe depth {depth}: K1 launched "
               f"{counts['fused_decode']} times, {dispatches} dispatches")
-        check(counts["int8_gemm_requant"] == (convs * dispatches
-                                              if quantize else 0),
-              f"serve_probe depth {depth}: K3 launched "
+        forwards = host_forwards(counts, dispatches) if quantize else 0
+        check(counts["int8_gemm_requant"] == convs * forwards
+              and counts["graph_replays"] <= dispatches,
+              f"serve_probe depth {depth}: K3 called "
               f"{counts['int8_gemm_requant']} times, {convs} a forward x "
-              f"{dispatches} dispatches expected")
+              f"{forwards} forwards on the host expected ({dispatches} "
+              f"dispatches, {counts})")
         add_counts(launches, counts)
     check(rows[-1]["row_mean_batch"] > 1,
           f"serve_probe: no coalescing at depth {depths[-1][0]}: {rows[-1]}")

@@ -36,7 +36,8 @@ class HostLoop:
 
     def warmup(self, with_u16: bool = True) -> None:
         """Run every (bucket, frame dtype) path once, so that no request
-        pays for the first launch or the kernels' build."""
+        pays for the first launch, the kernels' build or the capture of
+        the int8 net's CUDA graph."""
         h, w = self.frame_hw
         bbx = np.asarray([[0, 0, h, w, 500.0]], np.float32)
         dtypes = ((np.float32, np.uint16) if with_u16 and self.accepts_u16

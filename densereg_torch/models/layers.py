@@ -28,7 +28,8 @@ quantize of a float input, and :func:`quantize_output` of a sum, the add
 included) runs inside the span ``densereg.int8.quantize``; one fused into a
 kernel's epilogue does not. Each is one call of ``ops.int8_quantize`` (one
 kernel launch on the card). :data:`int8_counts` counts the int8 forward's
-steps.
+steps. A serving forward on the card replays as a CUDA graph
+(``models.int8_graph``): its spans open only while the graph is captured.
 """
 
 from __future__ import annotations
@@ -59,10 +60,13 @@ OUT_USES = ("q", "f", "both")
 # depthwise kernel (``dw``), standalone quantize steps (``quantize``), the
 # quantize kernel's launches among them (``quantize_kernel``: 0 on the
 # CPU), and quantizations with a batch's own ``max|x|`` outside calibration
-# (``dynamic``: 0 in a calibrated net)
+# (``dynamic``: 0 in a calibrated net), and the serving forwards captured
+# into a CUDA graph (``graph_captures``) and replayed (``graph_replays``):
+# the other counts are of calls made on the host, a capture's included and
+# a replay's not (``models.int8_graph``)
 int8_counts = dict.fromkeys(
     ("k3_dense", "k3_implicit", "dw", "quantize", "quantize_kernel",
-     "dynamic"), 0)
+     "dynamic", "graph_captures", "graph_replays"), 0)
 
 
 class QTensor:

@@ -153,8 +153,10 @@ class Kernel:
     raw stream last, after an ``int*`` for the path it took where it has
     ``paths``. A launch adds one to ``counter.launches`` and to
     ``counter.launches_by_path[path]`` (like them, the one path int is not
-    kept apart for two threads); an error raises ``RuntimeError`` named
-    after ``counter``, with ``notes[err]`` appended."""
+    kept apart for two threads), one recorded into a CUDA graph's capture
+    too: a replay of the graph makes no call and counts nothing here. An
+    error raises ``RuntimeError`` named after ``counter``, with
+    ``notes[err]`` appended."""
 
     def __init__(self, source: str, entry: str, argtypes, counter,
                  paths=None, notes=None):

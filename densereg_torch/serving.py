@@ -12,8 +12,11 @@ the custom op ``densereg::fused_decode`` (the fused decode kernel on CUDA).
 That program is one module, :class:`ServingModule`, which
 ``densereg_torch.export`` exports as it stands. The host side (chunks,
 bucket padding, the pinned feed, the fetch, the warm-up) is
-``host_loop.HostLoop``, which the exported predictor shares. The port runs
-eagerly.
+``host_loop.HostLoop``, which the exported predictor shares. The float
+nets run eagerly. The int8 net's forward on a card replays one CUDA graph
+for each dispatch shape (``models.int8_graph``), captured at the shape's
+first dispatch (``warmup`` makes that one of set-up's); ``torch.export``
+traces the eager forward.
 
 With a ``mesh`` (``parallel.make_mesh``) a dispatch is split over the
 mesh's devices. Under a process group every process, one card each,
@@ -37,6 +40,7 @@ from densereg_torch.decode import decode_poses
 from densereg_torch.host_loop import HostLoop, bucket_ladder
 from densereg_torch.models import fold_batch_norm, from_flax, to_flax
 from densereg_torch.models.bridge import is_folded, is_quantized
+from densereg_torch.models.int8_graph import Int8ForwardGraph
 from densereg_torch.models.quantize import calibrate, quantize_weights
 from densereg_torch.preprocess import (
     center_of_mass,
@@ -60,6 +64,7 @@ class ServingModule(nn.Module):
         self.net = net
         self.register_buffer("cam", cam)
         self.ecfg = ecfg
+        self.graph = Int8ForwardGraph(net)
 
     def normed(self, frames: torch.Tensor, bbxs: torch.Tensor):
         """Frames and boxes -> the net's input (normalized depth crops),
@@ -71,8 +76,14 @@ class ServingModule(nn.Module):
             return norm_dm(dms, coms), cfgs, coms
 
     def _net(self, normed: torch.Tensor):
+        """The net's heads, through the int8 net's CUDA graph where it
+        engages (:class:`Int8ForwardGraph`): a replay's heads are the
+        graph's own tensors, which the next dispatch of that shape
+        overwrites."""
         with span("densereg.net"):
-            return self.net(normed)
+            if not self.graph.engaged(normed.device):
+                return self.net(normed)
+            return self.graph(normed)
 
     def _subsample(self, outs, normed: torch.Tensor):
         """The last stack's ``hm, hm3, um`` (NHWC views) and the
@@ -83,11 +94,20 @@ class ServingModule(nn.Module):
 
     def heads(self, frames: torch.Tensor, bbxs: torch.Tensor):
         """The decode's inputs: the last stack's ``hm, hm3, um`` (NHWC
-        views), the head-grid depth, ``cfgs`` and ``coms``."""
+        views), the head-grid depth, ``cfgs`` and ``coms``; the heads of a
+        replay copied stride for stride, so that the next dispatch leaves
+        them as they are."""
         normed, cfgs, coms = self.normed(frames, bbxs)
-        return self._subsample(self._net(normed), normed) + (cfgs, coms)
+        hm, hm3, um, dm = self._subsample(self._net(normed), normed)
+        if self.graph.engaged(normed.device):
+            hm, hm3, um = (torch.empty_strided(
+                t.shape, t.stride(), dtype=t.dtype,
+                device=t.device).copy_(t) for t in (hm, hm3, um))
+        return hm, hm3, um, dm, cfgs, coms
 
     def forward(self, frames: torch.Tensor, bbxs: torch.Tensor):
+        # the decode reads the heads on the stream before the next
+        # dispatch's replay rewrites them: no copy
         normed, cfgs, coms = self.normed(frames, bbxs)
         outs = self._net(normed)
         with span("densereg.decode"):
@@ -113,6 +133,8 @@ class Predictor(HostLoop):
     crop and normalization and are static from then on; without it each
     batch scales its activations by its own maxima (dynamic).
     ``compute_dtype`` is then the dtype of the float views between layers.
+    On CUDA the int8 forward replays a CUDA graph for each bucket
+    (``models.int8_graph``), captured at the bucket's first dispatch.
 
     ``mesh`` (``parallel.make_mesh``) serves on all of the mesh's devices:
     the predictor then lives on ``mesh.devices`` (``device`` is not read),

@@ -13,8 +13,9 @@ launches the work, so a range shares the clock of the kernels and copies
 it issues. Spans nest by time on one thread: a dispatch's spans sit inside
 its request's span, and that nesting is what ties them together. No span
 sits inside the float network's layers (a training step issues tens of
-thousands of kernels); in the int8 serving net each standalone quantize
-step opens one. The spans:
+thousands of kernels); in the int8 net each standalone quantize step
+opens one, which a serving forward on the card replays as a CUDA graph
+without it. The spans:
 
 span (once per)                      where
 ``densereg.predict`` (request)       ``host_loop.HostLoop.__call__`` (the
@@ -29,7 +30,12 @@ span (once per)                      where
 ``densereg.int8.quantize`` (step)    the int8 net's standalone quantize
                                      steps (``models.layers``: a
                                      convolution's quantize of a float
-                                     input, ``quantize_output`` of a sum)
+                                     input, ``quantize_output`` of a sum);
+                                     a serving forward on the card opens
+                                     them only while its graph is captured
+``densereg.int8.graph_replay``       ``models.int8_graph.Int8ForwardGraph``:
+  (int8 forward on the card)         the replay of the int8 net's CUDA
+                                     graph; inside ``densereg.net``
 ``densereg.decode`` (chunk)          the head-grid subsample and
                                      ``decode_poses``
 ``densereg.fetch`` (chunk)           a chunk's copy to the host in

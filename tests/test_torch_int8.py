@@ -374,3 +374,150 @@ def test_int8_predictor_matches_jax(trees, calibrated):
     if calibrated:
         theirs_stats = jax.tree.map(float, theirs.variables["act_stats"])
         assert stats["stem_conv"]["amax"] == theirs_stats["stem_conv"]["amax"]
+
+
+# --------------------------------------------------------------------------
+# the int8 forward's CUDA graph (models.int8_graph) on the CPU: it never
+# engages; the card's tests are tests/test_torch_cuda_int8_graph.py
+# --------------------------------------------------------------------------
+
+def test_int8_counts_hold_the_graph_keys():
+    """The graph's counters are among the int8 counters from import on,
+    beside the host calls' (the benchmark copies the whole dict)."""
+    from densereg_torch.models import int8_graph, layers
+
+    assert int8_graph.int8_counts is layers.int8_counts
+    assert set(layers.int8_counts) == {
+        "k3_dense", "k3_implicit", "dw", "quantize", "quantize_kernel",
+        "dynamic", "graph_captures", "graph_replays"}
+
+
+@pytest.mark.parametrize("calibrated", [True, False])
+def test_int8_graph_never_engages_on_the_cpu(trees, calibrated):
+    """On the CPU the serving forward runs eagerly: no capture, no replay,
+    and the answers are the eager net's, dispatch after dispatch."""
+    from densereg_torch.decode import decode_poses
+    from densereg_torch.models import layers
+
+    variables, _, _ = trees
+    frames, bbxs = _hand_frames(np.random.default_rng(2), 2)
+    ours = Predictor(variables, NetConfig(**SHAPE), ICVL, max_batch=2,
+                     quantize=True, device="cpu",
+                     calibration=(frames, bbxs) if calibrated else None)
+    counts = dict(layers.int8_counts)
+    first, second = ours(frames, bbxs), ours(frames, bbxs)
+    assert layers.int8_counts["graph_captures"] == counts["graph_captures"]
+    assert layers.int8_counts["graph_replays"] == counts["graph_replays"]
+    assert layers.int8_counts["quantize"] > counts["quantize"]
+    mod = ours.module
+    with torch.inference_mode():
+        assert not mod.graph.engaged(torch.device("cpu"))
+        normed, cfgs, coms = mod.normed(torch.from_numpy(frames[..., None]),
+                                        torch.from_numpy(bbxs))
+        want = decode_poses(*mod._subsample(ours.net(normed), normed), cfgs,
+                            coms, ours.ecfg)["xyz"].numpy()
+    np.testing.assert_array_equal(first, want)
+    np.testing.assert_array_equal(second, want)
+
+
+def test_int8_graph_engages_only_where_it_may(trees, monkeypatch):
+    """The conditions, read for a card: an int8 net, no grad recorded, no
+    module calibrating, no trace; a float net never."""
+    from densereg_torch.models.int8_graph import Int8ForwardGraph
+
+    _, folded, jquant = trees
+    card = torch.device("cuda")
+    graph = Int8ForwardGraph(from_flax(jquant, NetConfig(**SHAPE)))
+    float_graph = Int8ForwardGraph(from_flax(folded, NetConfig(
+        **SHAPE, fold_bn=True)))
+    with torch.inference_mode():
+        assert graph.engaged(card) and not float_graph.engaged(card)
+    with torch.no_grad():
+        assert graph.engaged(card)
+    assert not graph.engaged(card)                  # grad recorded
+    with torch.inference_mode():
+        graph._calibrating[3].calibrating = True
+        assert not graph.engaged(card)
+        graph._calibrating[3].calibrating = False
+        monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+        assert not graph.engaged(card)
+
+
+def test_int8_graph_sees_a_calibration_and_a_weight_update(trees):
+    """What sends a captured shape back to a capture: its stamp changes
+    when ``calibrate`` replaces the activation maxima and when a weight
+    changes in place, and stays put otherwise; a copy of a serving module
+    (a mesh's replica) gets its own graph on its own net."""
+    import copy
+
+    from densereg_torch.models import layers
+    from densereg_torch.models.int8_graph import Int8ForwardGraph
+
+    _, _, jquant = trees
+    net = from_flax(jquant, NetConfig(**SHAPE))
+    dms = torch.from_numpy(seeded_depth(np.random.default_rng(5), 2, 64, 64))
+    calibrate(net, [dms])
+    graph = Int8ForwardGraph(net)
+    with torch.inference_mode():
+        net(dms)                                    # packs the weights
+    stamp = graph._stamp()
+    assert len(stamp) > 500 and graph._stamp() == stamp
+    with torch.inference_mode():
+        net(dms)
+    assert graph._stamp() == stamp
+    calibrate(net, [2.0 * dms])
+    moved = graph._stamp()
+    assert moved != stamp and graph._stamp() == moved
+    conv = next(m for m in net.modules() if isinstance(m, layers.ConvBR))
+    with torch.no_grad():
+        conv.kernel_q.neg_()
+    assert graph._stamp() != moved
+
+    from densereg_torch.config import EvalConfig
+    from densereg_torch.serving import ServingModule
+
+    module = ServingModule(net, torch.zeros(6), EvalConfig())
+    twin = copy.deepcopy(module)
+    assert module.graph.net is net and twin.graph.net is twin.net
+    assert twin.net is not net and len(twin.graph._stamp()) == len(stamp)
+
+
+def test_exported_int8_program_is_the_eager_one(trees):
+    """``torch.export`` of the int8 serving module traces the eager
+    forward: the graph does not engage while it traces, the program holds
+    one quantize op a standalone step of an eager forward and one K3 op a
+    convolution, and it answers as the live module does."""
+    from densereg_torch.models import layers
+
+    variables, _, _ = trees
+    frames, bbxs = _hand_frames(np.random.default_rng(2), 2)
+    ours = Predictor(variables, NetConfig(**SHAPE), ICVL, max_batch=2,
+                     quantize=True, calibration=(frames, bbxs), device="cpu")
+    mod = ours.module.eval()
+    args = (torch.from_numpy(frames[..., None]), torch.from_numpy(bbxs))
+    seen = []
+
+    class Probe(torch.nn.Module):
+        def forward(self, x):
+            seen.append(mod.graph.engaged(torch.device("cuda")))
+            return x + 1
+
+    with torch.no_grad():
+        torch.export.export(Probe(), (args[1],))
+        counts = dict(layers.int8_counts)
+        want = mod(*args)
+        steps = layers.int8_counts["quantize"] - counts["quantize"]
+        convs = (layers.int8_counts["k3_dense"] + layers.int8_counts[
+            "k3_implicit"] - counts["k3_dense"] - counts["k3_implicit"])
+        ep = torch.export.export(mod, args)
+    assert seen == [False]
+    assert layers.int8_counts["graph_captures"] == counts["graph_captures"]
+    targets = [str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("densereg.int8_quantize.default") == steps > 0
+    assert sum(t in ("densereg.int8_gemm_requant.default",
+                     "densereg.int8_conv_requant.default")
+               for t in targets) == convs > 0
+    with torch.no_grad():
+        got = ep.module()(*args)
+    assert torch.equal(got, want)

@@ -133,8 +133,10 @@ def test_counters_give_the_architectures_steps(served):
     with torch.inference_mode():
         served["pred"].net(served["crops"][:4])
     got = {k: layers.int8_counts[k] - before[k] for k in before}
-    # the quantize kernel launches only on the card
-    assert got == dict(STEPS, dynamic=0, quantize_kernel=0)
+    # the quantize kernel launches, and the forward is a CUDA graph, only
+    # on the card
+    assert got == dict(STEPS, dynamic=0, quantize_kernel=0,
+                       graph_captures=0, graph_replays=0)
 
 
 def test_quantize_spans_under_a_cpu_profiler(served, tmp_path):
