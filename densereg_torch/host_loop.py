@@ -12,6 +12,13 @@ import torch
 from densereg_torch.utils.device import to_device
 from densereg_torch.utils.profiling import span
 
+# the host loop's fetches since the process started, read as differences:
+# every chunk's fetch (``fetches``), those made while a later chunk of the
+# same request was already enqueued (``ahead``), and those whose copy to
+# the host had completed before the host came to wait for it (``ready``:
+# the host, not the card, set the pace; 0 on the CPU)
+fetch_counts = dict.fromkeys(("fetches", "ahead", "ready"), 0)
+
 
 def bucket_ladder(batch_buckets, max_batch: int) -> tuple:
     """The dispatch sizes, ascending: ``batch_buckets`` and ``max_batch``,
@@ -71,7 +78,9 @@ class HostLoop:
 
         Requests larger than ``max_batch`` run as a double-buffered chunk
         pipeline: chunk k+1 is padded and enqueued before chunk k's result
-        is fetched."""
+        is fetched. On a card each chunk's copy to the host is enqueued
+        right behind it, so chunk k's fetch waits for chunk k alone, and
+        the host pads and feeds chunk k+2 while the card runs chunk k+1."""
         with span("densereg.predict"):
             frames = np.asarray(frames_mm)
             if frames.ndim == 3:
@@ -83,15 +92,39 @@ class HostLoop:
             for i in range(0, b, self.max_batch):
                 chunk = frames[i:i + self.max_batch]
                 dev = self._dispatch(chunk, bbxs[i:i + self.max_batch])
+                copied = _to_host(dev[:len(chunk)])
                 if pending is not None:
-                    out.append(_fetch(*pending))
-                pending = (dev, len(chunk))
-            out.append(_fetch(*pending))
+                    out.append(_fetch(*pending, ahead=True))
+                pending = copied
+            out.append(_fetch(*pending, ahead=False))
             return out[0] if len(out) == 1 else np.concatenate(out)
 
 
-def _fetch(dev: torch.Tensor, n: int) -> np.ndarray:
-    """A dispatch's first ``n`` rows on the host: the host waits for the
-    device here."""
+def _to_host(dev: torch.Tensor):
+    """Enqueue a dispatch's rows' copy to the host without waiting:
+    ``(host tensor, event)``. On a card the copy goes to a pinned tensor of
+    its own (the caller's answer never aliases a later chunk's), and the
+    event is recorded behind it on the stream that ran the chunk; elsewhere
+    the copy is made now (on the CPU the rows are the answer), and there
+    is no event."""
+    if dev.device.type != "cuda":
+        return dev.cpu(), None
+    host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+    host.copy_(dev, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev.device))
+    return host, done
+
+
+def _fetch(host: torch.Tensor, done, ahead: bool) -> np.ndarray:
+    """A chunk's rows as numpy: the host waits here for the chunk's copy
+    (``done``) only, not for the work enqueued after it."""
     with span("densereg.fetch"):
-        return dev[:n].cpu().numpy()
+        fetch_counts["fetches"] += 1
+        fetch_counts["ahead"] += ahead
+        if done is not None:
+            if done.query():
+                fetch_counts["ready"] += 1
+            else:
+                done.synchronize()
+        return host.numpy()

@@ -38,8 +38,10 @@ span (once per)                      where
                                      graph; inside ``densereg.net``
 ``densereg.decode`` (chunk)          the head-grid subsample and
                                      ``decode_poses``
-``densereg.fetch`` (chunk)           a chunk's copy to the host in
-                                     ``HostLoop.__call__``
+``densereg.fetch`` (chunk)           ``host_loop._fetch``: the host's wait
+                                     for a chunk's copy to the host, on
+                                     a card the chunk's own event; counter
+                                     ``host_loop.fetch_counts``
 ``densereg.train.step`` (step)       one iteration of ``train.loop.train``'s
                                      loop, inside the profiler's start and stop
 ``densereg.pipeline.wait`` (batch)   ``InputPipeline``'s wait on its producers

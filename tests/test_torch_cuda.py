@@ -32,7 +32,10 @@ of each int8 forward run on the host, a CUDA graph's capture included
 and its replays not (``chip_smoke.phase_daemon``); the same for the
 port's daemon load probe (``densereg_torch.tools.serve_probe``), and its
 trace summary (``densereg_torch.tools.trace_summary``) names K1 and K3 in
-a trace of one int8 dispatch.
+a trace of one int8 dispatch. The host loop: each chunk's fetch returns
+while the next chunk still runs on the card, and a request of several
+chunks is bit-equal to its chunks sent alone, on the int8 graph and on a
+float net, with no answer overwritten by a later request.
 """
 
 import dataclasses
@@ -61,7 +64,7 @@ from chip_smoke import (  # noqa: E402
     plain_on_cpu,
     vote_edge_cases,
 )
-from densereg_torch import decode  # noqa: E402
+from densereg_torch import decode, host_loop  # noqa: E402
 from densereg_torch.models import layers  # noqa: E402
 from densereg_torch.ops import fused_decode as ops  # noqa: E402
 from densereg_torch.ops import int8_dwconv as dw  # noqa: E402
@@ -998,3 +1001,89 @@ def test_trace_summary_on_card(cuda, tmp_path):
     out = tools_trace(pred, frames, bbxs, str(tmp_path), convs)
     assert out["calls_by_id"] == {"K1": 1, "K2": 0, "K3": convs, "DW": 0}
     assert out["ms_by_id"]["K1"] > 0 and out["ms_by_id"]["K3"] > 0
+
+
+class _HeldLoop(host_loop.HostLoop):
+    """A host loop whose chunk holds the card for ``cycles``
+    clock cycles, then answers each frame with its box's first three numbers
+    plus its first pixel; ``done`` holds an event recorded at the end of
+    each chunk's work."""
+
+    max_batch = 4
+    batch_buckets = (4,)
+    frame_hw = (8, 8)
+    num_joint = 1
+    accepts_u16 = False
+
+    def __init__(self, cycles: int):
+        self.device = torch.device("cuda")
+        self.cycles = cycles
+        self.done = []
+
+    def _predict(self, frames, bbxs):
+        torch.cuda._sleep(self.cycles)
+        out = bbxs[:, :3] + frames[:, 0, 0, :]
+        self.done.append(torch.cuda.Event())
+        self.done[-1].record()
+        return out
+
+
+@pytest.mark.cuda
+def test_fetch_waits_for_its_own_chunk_alone(cuda, monkeypatch):
+    """A request of four chunks (the last padded), each holding the card
+    ~100 ms: each fetch but the last returns while the next chunk's work
+    is still running on the card; ``fetch_counts`` reads three fetches
+    ahead of four, none ready; the answers are the chunks' own. A first
+    request warms the pinned allocator, whose first allocation can take
+    longer than a chunk."""
+    loop = _HeldLoop(int(2e8))
+    rng = np.random.default_rng(3)
+    frames = rng.uniform(300, 900, (14, 8, 8)).astype(np.float32)
+    bbxs = rng.uniform(0, 200, (14, 5)).astype(np.float32)
+    loop(frames, bbxs)
+    loop.done.clear()
+    seen = []
+    fetch = host_loop._fetch
+
+    def watched(*args, **kw):
+        out = fetch(*args, **kw)
+        seen.append([e.query() for e in loop.done])
+        return out
+
+    monkeypatch.setattr(host_loop, "_fetch", watched)
+    before = dict(host_loop.fetch_counts)
+    got = loop(frames, bbxs)
+    moved = {k: host_loop.fetch_counts[k] - before[k] for k in before}
+    assert moved == {"fetches": 4, "ahead": 3, "ready": 0}
+    assert len(seen) == 4
+    for k, flags in enumerate(seen[:-1]):
+        assert flags[k] and not flags[k + 1], (k, flags)
+    np.testing.assert_array_equal(got, bbxs[:, :3] + frames[:, :1, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["int8-graph", "float"])
+def test_chunked_request_equals_one_chunk_requests(cuda, net):
+    """A request of five chunks of 8, the last padded (3 frames), is
+    bit-equal to the same frames sent as five one-chunk requests; a
+    one-chunk answer held from the first request (the pinned rows
+    themselves) stays bit-equal after three more requests."""
+    from chip_smoke import ICVL, hand_frames
+    from densereg_torch import NetConfig, Predictor
+    from densereg_torch.models import init_variables
+
+    quantize = net == "int8-graph"
+    cfg = NetConfig(num_joint=14,
+                    compute_dtype="float32" if quantize else "bfloat16")
+    calib = hand_frames(np.random.default_rng(100), 16) if quantize else None
+    pred = Predictor(init_variables(cfg, seed=0), cfg, ICVL, max_batch=8,
+                     quantize=quantize, calibration=calib, device=cuda)
+    frames, bbxs = hand_frames(np.random.default_rng(7), 35)
+    held = pred(frames[:8], bbxs[:8])
+    kept = held.copy()
+    whole = pred(frames, bbxs)
+    parts = [pred(frames[i:i + 8], bbxs[i:i + 8]) for i in range(0, 35, 8)]
+    assert whole.shape == (35, 42)
+    np.testing.assert_array_equal(whole, np.concatenate(parts))
+    np.testing.assert_array_equal(held, kept)
+    np.testing.assert_array_equal(held, parts[0])

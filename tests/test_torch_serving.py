@@ -32,6 +32,7 @@ from densereg_tpu.preprocess import (  # noqa: E402
 from densereg_tpu.serving import Predictor as JPredictor  # noqa: E402
 
 from densereg_torch import CameraConfig, NetConfig, Predictor  # noqa: E402
+from densereg_torch import host_loop  # noqa: E402
 from densereg_torch.eval import make_infer_fn  # noqa: E402
 from densereg_torch.models import init_variables  # noqa: E402
 from densereg_torch.ops.fused_decode import fused_decode  # noqa: E402
@@ -124,6 +125,23 @@ def test_predictor_matches_jax(setup, dtype):
     # bucket 1 against a row of bucket 4: the convolutions may pick other
     # algorithms per batch size, so the same bound as across packages
     _assert_xyz_close(lone, got[:1])
+
+
+def test_three_chunk_request_counts_its_fetches(setup):
+    """A 10-frame request at max_batch 4 (chunks of 4, 4 and 2, the last
+    padded to bucket 4) fetches each chunk once, the first two with the
+    next chunk enqueued, none ready (the CPU has no event), and equals the
+    chunk loop that copied each dispatch's rows to the host by ``.cpu()``."""
+    _, _, _, ours, _ = setup
+    frames, bbxs = _hand_frames(np.random.default_rng(5), 10)
+    before = dict(host_loop.fetch_counts)
+    got = ours(frames, bbxs)
+    moved = {k: host_loop.fetch_counts[k] - before[k] for k in before}
+    assert moved == {"fetches": 3, "ahead": 2, "ready": 0}
+    want = np.concatenate([
+        ours._dispatch(frames[i:i + 4, ..., None], bbxs[i:i + 4])
+        [:len(frames[i:i + 4])].cpu().numpy() for i in range(0, 10, 4)])
+    np.testing.assert_array_equal(got, want)
 
 
 def test_uint16_request_matches_float32(setup):
